@@ -7,22 +7,31 @@ Run from the root of a checkout. Needs a CUDA device and nvcc; imports
 nothing of JAX. Phases:
 
 1. the card (nvidia-smi name and power limit), torch and CUDA versions, and
-   the build of both kernels from `local_search_quantization_torch/csrc/`;
+   the build of every kernel in `local_search_quantization_torch/csrc/`,
+   one nvcc per source, all started together;
 2. K1 (the whole-ILS encode kernel) against its plain PyTorch version on the
    same streamed randomness: an integer fixture and the SIFT width
    (n=131072, d=128, m=7, h=256, ilsiter=4, icmiter=4, npert=4). Codes,
    costs, milestones and counts must be identical: both sum in one fixed
    order and break ties to the lowest index;
+2b. K5 and K6 (the per-round ICM sweeps kernels, variants "v2" and "v1")
+   against their plain versions on the same codes: an integer fixture
+   (n=8192) and the SIFT width (n=131072, icmiter=4, trained codebooks).
+   Codes must be identical;
 3. K2 (the ADC scan + exact top-k) against its plain version over a
    1M-row base, 1000 queries at k=1000 (the main path's query shape): ids
    and dists identical, for uint8 and int32 code layouts;
-4. the main path through `demos/demo_lsq_torch.py`'s functions on the
+4. main path A through `demos/demo_lsq_torch.py`'s functions on the
    synthetic SIFT-statistics corpus (100k train, 1M base, 1000 queries):
-   LSQ training from random codes (m=7, h=256, niter=10, ilsiter=8), an
-   LSQ-16 base encode, norm quantization, the k=1000 ADC query and recall.
-   The kernels' launch counters are zeroed just before it and must be > 0
-   after it; the accept invariant, the recall curve and a plain-version
-   check of the query results must hold.
+   OPQ -> ChainQ -> LSQ training (m=7, h=256, niter=10, ilsiter=8) with
+   condition_mode "auto" (K1), an LSQ-16 base encode, norm quantization, the
+   k=1000 ADC query (K2) and recall;
+4b. main path B: LSQ trained again from path A's OPQ/ChainQ result with
+   condition_mode "fused" (K5 in every ILS round), the base encoded with
+   "fused", then norms, query and recall as in path A.
+   In each path the kernels' launch counters are zeroed just before it and
+   the path's kernels must be > 0 after it; the accept invariant, the
+   recall curve and a plain-version check of the query results must hold.
 
 Prints the kernels' JSON line and then, last, the device line. Any failed
 check exits non-zero before those lines are printed.
@@ -43,6 +52,17 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 # SIFT width of the K1 check and the main path.
 D, M, H = 128, 7, 256
 K1_N, K1_ROUNDS, ICMITER, NPERT = 131072, 4, 4, 4
+# The kernels' source files, and the TPU kernel bodies they replace.
+KERNELS = {
+    "ils_encode": ("local_search_quantization_torch/csrc/ils_encode.cu",
+                   "local_search_quantization_tpu/ops/icm_pallas.py:336"),
+    "scan_topk": ("local_search_quantization_torch/csrc/scan_topk.cu",
+                  "local_search_quantization_tpu/ops/select_pallas.py:226"),
+    "icm_sweeps_v2": ("local_search_quantization_torch/csrc/icm_sweeps.cu",
+                      "local_search_quantization_tpu/ops/icm_pallas.py:81"),
+    "icm_sweeps_v1": ("local_search_quantization_torch/csrc/icm_sweeps.cu",
+                      "local_search_quantization_tpu/ops/icm_pallas.py:37"),
+}
 K2_N, K2_QUERIES, K = 1_000_000, 1000, 1000
 MAIN = dict(ntrain=100_000, nbase=1_000_000, nquery=1000, niter=10, ilsiter_base=16)
 
@@ -79,8 +99,10 @@ def phase_environment(torch, _build):
     print(card)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"device {torch.cuda.get_device_name(0)}, count {torch.cuda.device_count()}")
-    for name in ("ils_encode", "scan_topk"):
-        _build.load(name)
+    t0 = time.perf_counter()
+    _build.load_all()
+    print(f"build: {len(_build.KERNELS)} kernels in {time.perf_counter() - t0:.2f} s")
+    for name in _build.KERNELS:
         info = _build.BUILD_INFO[name]
         print(f"build {name}: {info['seconds']:.2f} s (cached={info['cached']})")
         for line in info["log"].splitlines():
@@ -149,6 +171,61 @@ def phase_k1(torch, data, dev):
     return C, compare_k1(torch, args, "SIFT width", True)
 
 
+def compare_sweeps(torch, args, label, time_it):
+    """K5 and K6 against their plain versions on the same codes; returns
+    {variant: (max abs code diff, kernel ms, plain ms)}."""
+    from local_search_quantization_torch.ops import icm_kernels as ik
+
+    out = {}
+    for variant in ("v2", "v1"):
+        kw = dict(icmiter=ICMITER, variant=variant)
+        got = ik.fused_icm_sweeps(*args, **kw)
+        want = ik.fused_icm_sweeps_reference(*args, **kw)
+        torch.cuda.synchronize()
+        rows = int((got != want).any(1).sum())
+        err = float((got - want).abs().max())
+        moved = int((got != args[0]).any(1).sum())
+        print(f"K{5 if variant == 'v2' else 6} ({variant}) {label}: "
+              f"n={args[0].shape[0]}, rows with other codes {rows}, rows the "
+              f"sweeps changed {moved}, identical: {rows == 0}")
+        check(rows == 0 and got.dtype == torch.int32,
+              f"icm_sweeps_{variant} {label}: kernel and plain version disagree "
+              f"on {rows} rows")
+        check(moved > 0, f"icm_sweeps_{variant} {label}: the sweeps changed no code")
+        ms = plain = None
+        if time_it:
+            ms = cuda_ms(torch, lambda: ik.fused_icm_sweeps(*args, **kw), 5)
+            plain = cuda_ms(torch, lambda: ik.fused_icm_sweeps_reference(*args, **kw), 1)
+            n = args[0].shape[0]
+            print(f"K{5 if variant == 'v2' else 6} ({variant}) {label} time: kernel "
+                  f"{ms:.3f} ms, plain {plain:.3f} ms ({n / ms / 1e3:.3f}M rows/s "
+                  f"kernel, {ICMITER} sweeps)")
+        out[variant] = (err, ms, plain)
+    return out
+
+
+def sweeps_args(torch, X, C, B0, seed):
+    from local_search_quantization_torch.ops.luts import get_binaries, get_unaries
+
+    gen = torch.Generator(device=X.device).manual_seed(seed)
+    order = torch.randperm(C.shape[0], generator=gen, device=X.device).to(torch.int32)
+    return (B0, get_unaries(X, C), get_binaries(C).to(torch.bfloat16), order)
+
+
+def phase_sweeps(torch, C, data, dev):
+    from local_search_quantization_torch.utils.synth import random_codes
+
+    rng = np.random.default_rng(11)
+    n = 8192
+    Xi = torch.as_tensor(rng.integers(-3, 4, (n, D)).astype(np.float32), device=dev)
+    Ci = torch.as_tensor(rng.integers(-1, 2, (M, H, D)).astype(np.float32), device=dev)
+    Bi = torch.as_tensor(random_codes(12, n, M, H), device=dev)
+    compare_sweeps(torch, sweeps_args(torch, Xi, Ci, Bi, 13), "integer fixture", False)
+    X = torch.as_tensor(data[1][:K1_N], device=dev)
+    B0 = torch.as_tensor(random_codes(14, K1_N, M, H), device=dev)
+    return compare_sweeps(torch, sweeps_args(torch, X, C, B0, 15), "SIFT width", True)
+
+
 def phase_k2(torch, C, data, dev):
     from local_search_quantization_torch.ops.adc import lsq_query_luts
     from local_search_quantization_torch.ops.norms import reconstruction_sqnorms
@@ -196,7 +273,10 @@ def mrf_cost_chunked(torch, X, B, C):
     return torch.cat(out)
 
 
-def phase_main(torch, demo, data, dev):
+def drive_path(torch, demo, data, dev, label, mode, init):
+    """One main path: train (reusing `init`'s OPQ/ChainQ when given), encode
+    the base, quantize norms, query, recall; the launch counters are zeroed
+    just before and read just after. Returns (launches, train info, recall)."""
     from local_search_quantization_torch.ops import icm_kernels, select_kernels
     from local_search_quantization_torch.ops.adc import lsq_query_luts
     from local_search_quantization_torch.utils.config import LSQConfig
@@ -207,57 +287,89 @@ def phase_main(torch, demo, data, dev):
         "--nbase", str(MAIN["nbase"]), "--nquery", str(MAIN["nquery"]),
         "--m", str(M), "--h", str(H), "--niter", str(MAIN["niter"]),
         "--ilsiter-base", str(MAIN["ilsiter_base"]), "--knn", str(K),
-        "--synth-d", str(D), "--device", "cuda"])
-    cfg = LSQConfig(m=M, h=H, niter=args.niter, seed=args.seed)
+        "--synth-d", str(D), "--device", "cuda", "--condition-mode", mode])
+    cfg = LSQConfig(m=M, h=H, niter=args.niter, seed=args.seed,
+                    condition_mode=args.condition_mode)
     x_train, x_base, x_query, gt = data
+    torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     icm_kernels.ils_encode_streamed.launches = 0
+    icm_kernels.fused_icm_sweeps.launches.update(v2=0, v1=0)
     select_kernels.scan_topk.launches = 0
     t0 = time.perf_counter()
-    lsq, train_s = demo.train(args, cfg, x_train, dev)
+    lsq, info = demo.train(args, cfg, x_train, dev, init=init)
     out = demo.run_pipeline_tail(args, lsq, cfg, x_base, x_query, gt, dev)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {"ils_encode": icm_kernels.ils_encode_streamed.launches,
-                "scan_topk": select_kernels.scan_topk.launches}
+                "scan_topk": select_kernels.scan_topk.launches,
+                "icm_sweeps_v2": icm_kernels.fused_icm_sweeps.launches["v2"],
+                "icm_sweeps_v1": icm_kernels.fused_icm_sweeps.launches["v1"]}
     peak = torch.cuda.max_memory_allocated()
     ms = out["milestones"][MAIN["ilsiter_base"]]
     rec = ms["recall"]
-    print(f"main path: train {train_s:.3f} s, base encode {out['encode_s']:.3f} s "
+    reused = " (reused from path A)" if init is not None else ""
+    print(f"path {label} ({mode}): OPQ {info['opq_s']:.3f} s, error "
+          f"{float(info['opq'].obj[-1]):.6e}{reused}; ChainQ {info['chainq_s']:.3f} s, "
+          f"error {float(info['chain'].obj[-1]):.6e}{reused}; LSQ {info['lsq_s']:.3f} s, "
+          f"error {float(lsq.obj[-1]):.6e}")
+    print(f"path {label} ({mode}): base encode {out['encode_s']:.3f} s "
           f"({out['encode_vec_per_s']:.0f} vec/s, LSQ-{MAIN['ilsiter_base']}), "
           f"norms {ms['norms_s']:.3f} s, query {ms['query_s']:.3f} s "
           f"({ms['qps']:.1f} qps at k={K}), wall {wall:.3f} s")
-    print("main path: recall " + ", ".join(
+    print(f"path {label} ({mode}): recall " + ", ".join(
         f"r@{n}={rec[n - 1]:.4f}" for n in (1, 10, 100, 1000) if n <= K))
-    print(f"main path: train obj {lsq.obj[0]:.6e} -> {lsq.obj[-1]:.6e}, base error "
-          f"{ms['base_error']:.6e}, peak device memory {peak / 2**30:.3f} GiB")
-    print(f"main path: kernel launches {launches}")
+    print(f"path {label} ({mode}): LSQ train obj {lsq.obj[0]:.6e} -> {lsq.obj[-1]:.6e}, "
+          f"base error {ms['base_error']:.6e}, peak device memory {peak / 2**30:.3f} GiB")
+    print(f"path {label} ({mode}): kernel launches {launches}")
 
-    check(all(v > 0 for v in launches.values()),
-          f"a kernel of the main path never launched: {launches}")
-    check(bool(lsq.obj[-1] < lsq.obj[0]), "training objective did not fall")
+    check(bool(lsq.obj[-1] < lsq.obj[0]), f"path {label}: LSQ objective did not fall")
+    check(bool(info["chain"].obj[-1] < info["opq"].obj[-1]),
+          f"path {label}: ChainQ did not improve on OPQ")
+    check(bool(lsq.obj[-1] < info["chain"].obj[-1]),
+          f"path {label}: LSQ did not improve on ChainQ")
     Xb = torch.as_tensor(x_base, device=dev)
     B0 = torch.as_tensor(random_codes(args.seed, x_base.shape[0], M, H), device=dev)
     cost0 = mrf_cost_chunked(torch, Xb, B0, lsq.C)
-    check(bool((ms["cost"] <= cost0).all()), "base encode raised some row's cost")
-    check(bool(torch.isfinite(ms["cost"]).all()), "non-finite base cost")
+    check(bool((ms["cost"] <= cost0).all()), f"path {label}: base encode raised some row's cost")
+    check(bool(torch.isfinite(ms["cost"]).all()), f"path {label}: non-finite base cost")
     ids, dists = ms["ids"], ms["dists"]
     check(tuple(ids.shape) == (MAIN["nquery"], K) and ids.dtype == torch.int32,
-          f"query ids have shape {tuple(ids.shape)} {ids.dtype}")
-    check(bool(((ids >= 0) & (ids < x_base.shape[0])).all()), "ids out of range")
+          f"path {label}: query ids have shape {tuple(ids.shape)} {ids.dtype}")
+    check(bool(((ids >= 0) & (ids < x_base.shape[0])).all()), f"path {label}: ids out of range")
     check(bool(torch.isfinite(dists).all() and (dists.diff(dim=1) >= 0).all()),
-          "dists not finite and ascending")
-    check(bool((rec[1:] >= rec[:-1]).all()), "recall curve decreases")
-    check(rec[K - 1] >= 0.5 and rec[K - 1] > rec[0], f"recall@{K} {rec[K - 1]} too low")
+          f"path {label}: dists not finite and ascending")
+    check(bool((rec[1:] >= rec[:-1]).all()), f"path {label}: recall curve decreases")
+    check(rec[K - 1] >= 0.5 and rec[K - 1] > rec[0],
+          f"path {label}: recall@{K} {rec[K - 1]} too low")
     # The kernel's answers on the real encoded base against the plain version.
     Bt = ms["B"].t().to(torch.uint8).contiguous()
     luts = lsq_query_luts(torch.as_tensor(x_query[:32], device=dev), lsq.C).contiguous()
     rd, ri = select_kernels.scan_topk_reference(luts, Bt, ms["db_norms"], K)
     check(torch.equal(ri, ids[:32]) and torch.equal(rd, dists[:32]),
-          "main-path query results differ from the plain version")
-    print("main path: checks passed (accept invariant, recall curve, "
-          "plain-version agreement on 32 queries)")
-    return launches
+          f"path {label}: query results differ from the plain version")
+    print(f"path {label}: checks passed (objectives fall OPQ > ChainQ > LSQ, accept "
+          "invariant, recall curve, plain-version agreement on 32 queries)")
+    return launches, info, rec
+
+
+def phase_main(torch, demo, data, dev):
+    """Path A ("auto": K1 and K2), then path B ("fused": K5 and K2) from
+    path A's OPQ/ChainQ models."""
+    launches_a, info, rec_a = drive_path(torch, demo, data, dev, "A", "auto", None)
+    check(launches_a["ils_encode"] > 0 and launches_a["scan_topk"] > 0,
+          f"path A: a kernel of the path never launched: {launches_a}")
+    launches_b, _, rec_b = drive_path(torch, demo, data, dev, "B", "fused", info)
+    check(launches_b["icm_sweeps_v2"] > 0 and launches_b["scan_topk"] > 0,
+          f"path B: a kernel of the path never launched: {launches_b}")
+    check(launches_b["ils_encode"] == 0, f"path B ran K1: {launches_b}")
+    print("recall A (auto) vs B (fused): " + ", ".join(
+        f"r@{n} {rec_a[n - 1]:.4f} vs {rec_b[n - 1]:.4f}" for n in (1, 10, 100, 1000)))
+    # Each kernel's count from the path that runs it; K6 is on neither path.
+    return {"ils_encode": launches_a["ils_encode"],
+            "scan_topk": launches_a["scan_topk"] + launches_b["scan_topk"],
+            "icm_sweeps_v2": launches_b["icm_sweeps_v2"],
+            "icm_sweeps_v1": launches_a["icm_sweeps_v1"] + launches_b["icm_sweeps_v1"]}
 
 
 def main() -> int:
@@ -286,22 +398,17 @@ def main() -> int:
         "--synth-d", str(D)]))
     print(f"data: synthetic corpus {[a.shape for a in data]} in "
           f"{time.perf_counter() - t0:.3f} s")
-    C, (k1_err, k1_ms, k1_plain) = phase_k1(torch, data, dev)
-    k2_err, k2_ms, k2_plain = phase_k2(torch, C, data, dev)
+    C, k1 = phase_k1(torch, data, dev)
+    sweeps = phase_sweeps(torch, C, data, dev)
+    k2 = phase_k2(torch, C, data, dev)
     launches = phase_main(torch, demo, data, dev)
 
-    kernels = [
-        {"name": "ils_encode", "route": "cuda",
-         "source": "local_search_quantization_torch/csrc/ils_encode.cu",
-         "replaces": "local_search_quantization_tpu/ops/icm_pallas.py:336",
-         "launches": launches["ils_encode"], "max_abs_err": k1_err,
-         "ms": k1_ms, "plain_ms": k1_plain},
-        {"name": "scan_topk", "route": "cuda",
-         "source": "local_search_quantization_torch/csrc/scan_topk.cu",
-         "replaces": "local_search_quantization_tpu/ops/select_pallas.py:226",
-         "launches": launches["scan_topk"], "max_abs_err": k2_err,
-         "ms": k2_ms, "plain_ms": k2_plain},
-    ]
+    measured = {"ils_encode": k1, "scan_topk": k2, "icm_sweeps_v2": sweeps["v2"],
+                "icm_sweeps_v1": sweeps["v1"]}
+    kernels = [{"name": name, "route": "cuda", "source": src, "replaces": site,
+                "launches": launches[name], "max_abs_err": measured[name][0],
+                "ms": measured[name][1], "plain_ms": measured[name][2]}
+               for name, (src, site) in KERNELS.items()]
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,12 +1,15 @@
 #!/usr/bin/env python
-"""LSQ demo on the PyTorch port: train -> base encode -> norms -> ADC query -> recall.
+"""LSQ demo on the PyTorch port: OPQ -> ChainQ -> LSQ -> base encode -> norms
+-> ADC query -> recall.
 
 The PyTorch/CUDA counterpart of demos/demo_lsq.py, in the same order
-(train, encode_chunked, quantize_norms, linscan_lsq, eval_recall). LSQ
-starts from random codes and R = I: the OPQ/ChainQ initialisation is not
-ported yet. Runs on the GPU when there is one (the CUDA kernels build at
-first use), else on the CPU with the kernels' plain versions. Uses SIFT1M
-from ./data/sift/ when present, else the synthetic SIFT-statistics corpus.
+(train_opq, train_chainq, train_lsq, encode_chunked, quantize_norms,
+linscan_lsq, eval_recall). `--condition-mode` picks the ICM backend of both
+the LSQ training encodes and the base encode: "auto" (the whole-ILS kernel,
+K1) or "fused" (per-round ICM sweeps, K5), or the "gather"/"matmul" tensor
+paths. Runs on the GPU when there is one (the CUDA kernels build at first
+use), else on the CPU with the kernels' plain versions. Uses SIFT1M from
+./data/sift/ when present, else the synthetic SIFT-statistics corpus.
 
     python demos/demo_lsq_torch.py --ntrain 100000 --nbase 1000000 --nquery 1000
 """
@@ -21,10 +24,10 @@ import _bootstrap  # noqa: F401  (repo-root sys.path shim; see _bootstrap.py)
 import numpy as np
 import torch
 
-from local_search_quantization_torch.models.lsq import train_lsq
+from local_search_quantization_torch.models import train_chainq, train_lsq, train_opq
 from local_search_quantization_torch.ops import adc, icm, norms
 from local_search_quantization_torch.utils.checkpoint import load_model, save_model
-from local_search_quantization_torch.utils.config import LSQConfig
+from local_search_quantization_torch.utils.config import ChainQConfig, LSQConfig, OPQConfig
 from local_search_quantization_torch.utils.eval import eval_recall
 from local_search_quantization_torch.utils.io import dataset_available, read_dataset
 from local_search_quantization_torch.utils.synth import random_codes, synthetic_dataset
@@ -46,6 +49,10 @@ def parse_args(argv=None):
                          "the last one")
     ap.add_argument("--knn", type=int, default=1000)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--condition-mode", default="auto",
+                    choices=["auto", "kernel", "fused", "gather", "matmul"],
+                    help="ICM backend of the LSQ training encodes and the base "
+                         "encode")
     ap.add_argument("--synth-d", type=int, default=128,
                     help="dimensionality of the synthetic fallback dataset")
     ap.add_argument("--save-model", default=None, help="save the trained LSQ model (.npz)")
@@ -97,16 +104,30 @@ class Stopwatch:
             torch.cuda.synchronize(self.device)
 
 
-def train(args, cfg: LSQConfig, x_train: np.ndarray, device) -> tuple:
-    """LSQ from random codes and R = I. Returns (model, seconds)."""
+def train(args, cfg: LSQConfig, x_train: np.ndarray, device, init=None) -> tuple:
+    """OPQ -> ChainQ -> LSQ, as demos/demo_lsq.py trains. `init`, the info of
+    an earlier call, reuses its OPQ and ChainQ models. Returns (LSQ model,
+    info), info holding the OPQ and ChainQ models and each stage's seconds."""
     X = torch.as_tensor(x_train, device=device)
-    B0 = random_codes(args.seed, X.shape[0], cfg.m, cfg.h)
-    R = torch.eye(X.shape[1], device=device)
+    m, h = cfg.m, cfg.h
+    if init is None:
+        with Stopwatch(X.device) as sw:
+            opq = train_opq(X, OPQConfig(m=m, h=h, niter=args.niter, seed=args.seed))
+        print(f"Error after OPQ is {float(opq.obj[-1]):e}  ({sw.seconds:.1f}s)")
+        opq_s = sw.seconds
+        with Stopwatch(X.device) as sw:
+            chain = train_chainq(X, opq.B, opq.R, ChainQConfig(m=m, h=h, niter=args.niter))
+        print(f"Error after ChainQ is {float(chain.obj[-1]):e}  ({sw.seconds:.1f}s)")
+        chainq_s = sw.seconds
+    else:
+        opq, chain = init["opq"], init["chain"]
+        opq_s, chainq_s = init["opq_s"], init["chainq_s"]
     gen = torch.Generator(device=device).manual_seed(args.seed)
     with Stopwatch(X.device) as sw:
-        lsq = train_lsq(X, B0, R, cfg, generator=gen, verbose=True)
+        lsq = train_lsq(X, chain.B, chain.R, cfg, generator=gen, verbose=True)
     print(f"Error after LSQ is {float(lsq.obj[-1]):e}  ({sw.seconds:.1f}s)")
-    return lsq, sw.seconds
+    return lsq, {"opq": opq, "chain": chain, "opq_s": opq_s, "chainq_s": chainq_s,
+                 "lsq_s": sw.seconds}
 
 
 def run_pipeline_tail(args, lsq, cfg: LSQConfig, x_base, x_query, gt, device) -> dict:
@@ -127,7 +148,8 @@ def run_pipeline_tail(args, lsq, cfg: LSQConfig, x_base, x_query, gt, device) ->
     with Stopwatch(device) as sw:
         enc = icm.encode_chunked(gen, Xb, B0, lsq.C, ilsiter=milestones[-1],
                                  icmiter=cfg.icmiter, npert=cfg.npert,
-                                 randord=cfg.randord, milestones=milestones)
+                                 randord=cfg.randord, milestones=milestones,
+                                 condition_mode=args.condition_mode)
     out["encode_s"] = sw.seconds
     out["encode_vec_per_s"] = Xb.shape[0] / sw.seconds
     print(f"Base encoding: {out['encode_vec_per_s']:.0f} vec/s  ({sw.seconds:.1f}s)")
@@ -155,14 +177,16 @@ def run(args) -> dict:
     """The whole demo; returns the tail's results plus the training time."""
     set_fp32_precision()
     device = torch.device(args.device or ("cuda" if torch.cuda.is_available() else "cpu"))
-    cfg = LSQConfig(m=args.m, h=args.h, niter=args.niter, seed=args.seed)
+    cfg = LSQConfig(m=args.m, h=args.h, niter=args.niter, seed=args.seed,
+                    condition_mode=args.condition_mode)
     x_train, x_base, x_query, gt = load_data(args)
     if args.load_model:
         lsq = load_model(args.load_model, device)
         print(f"Loaded LSQ model from {args.load_model}")
         train_s = 0.0
     else:
-        lsq, train_s = train(args, cfg, x_train, device)
+        lsq, info = train(args, cfg, x_train, device)
+        train_s = info["opq_s"] + info["chainq_s"] + info["lsq_s"]
         if args.save_model:
             save_model(args.save_model, lsq)
             print(f"Saved LSQ model to {args.save_model}")

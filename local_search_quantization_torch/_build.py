@@ -42,38 +42,71 @@ def _nvcc() -> str:
     return found
 
 
-def load(name: str) -> ctypes.CDLL:
-    """Build (if needed) and load `csrc/<name>.cu`; raises if nvcc fails."""
-    lib = _LIBS.get(name)
-    if lib is not None:
-        return lib
+# Every kernel source in csrc/, by name.
+KERNELS = ("ils_encode", "scan_topk", "icm_sweeps")
+
+
+def _paths(name: str) -> tuple[str, str]:
+    """(source, library) of a kernel; the library name carries a hash of
+    the source and flags."""
     src = os.path.join(_CSRC, name + ".cu")
     with open(src, "rb") as f:
         digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
-    out = os.path.join(BUILD_DIR, f"lib{name}_{digest.hexdigest()[:16]}.so")
-    info = {"seconds": 0.0, "log": "", "cached": True}
-    if not os.path.exists(out):
-        os.makedirs(BUILD_DIR, exist_ok=True)
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-        os.close(fd)
-        t0 = time.perf_counter()
-        try:
-            proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, src],
-                                  capture_output=True, text=True)
-            if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed on {src}:\n{proc.stderr}")
-            os.replace(tmp, out)
-        finally:
-            if os.path.exists(tmp):
-                os.remove(tmp)
-        info = {"seconds": time.perf_counter() - t0,
-                "log": proc.stdout + proc.stderr, "cached": False}
+    return src, os.path.join(BUILD_DIR, f"lib{name}_{digest.hexdigest()[:16]}.so")
+
+
+def _open(name: str, out: str, info: dict) -> ctypes.CDLL:
     lib = ctypes.CDLL(out)
     lib.lsq_error_string.argtypes = [ctypes.c_int]
     lib.lsq_error_string.restype = ctypes.c_char_p
     BUILD_INFO[name] = info
     _LIBS[name] = lib
     return lib
+
+
+def load_all(names=KERNELS) -> dict[str, ctypes.CDLL]:
+    """Build every kernel in `names` that is not built yet, one nvcc process
+    per source, all started together; then load them. Raises if any nvcc
+    fails."""
+    pending, errors = [], []
+    try:
+        for name in names:
+            if name in _LIBS:
+                continue
+            src, out = _paths(name)
+            if os.path.exists(out):
+                _open(name, out, {"seconds": 0.0, "log": "", "cached": True})
+                continue
+            os.makedirs(BUILD_DIR, exist_ok=True)
+            fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+            os.close(fd)
+            pending.append([name, src, out, tmp, None, time.perf_counter()])
+            pending[-1][4] = subprocess.Popen(
+                [_nvcc(), *NVCC_FLAGS, "-o", tmp, src], stdout=subprocess.PIPE,
+                stderr=subprocess.PIPE, text=True)
+        for name, src, out, tmp, proc, t0 in pending:
+            stdout, stderr = proc.communicate()
+            if proc.returncode != 0:
+                errors.append(f"nvcc failed on {src}:\n{stderr}")
+                continue
+            os.replace(tmp, out)
+            _open(name, out, {"seconds": time.perf_counter() - t0,
+                              "log": stdout + stderr, "cached": False})
+    finally:
+        for _, _, _, tmp, proc, _ in pending:
+            if proc is not None and proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            if os.path.exists(tmp):
+                os.remove(tmp)
+    if errors:
+        raise RuntimeError("\n".join(errors))
+    return {name: _LIBS[name] for name in names}
+
+
+def load(name: str) -> ctypes.CDLL:
+    """Build (if needed) and load `csrc/<name>.cu`; raises if nvcc fails."""
+    return load_all((name,))[name]
 
 
 def check(lib: ctypes.CDLL, err: int, what: str) -> None:

@@ -5,8 +5,8 @@ The per-query LUT build is one einsum; the scan and its exact
 the CUDA kernels for CUDA tensors, the plain streaming merge for CPU tensors.
 Ids are 0-based int32; a +inf slot carries id -1.
 
-Not ported yet (ROADMAP.md): the PQ/OPQ LUTs, the tournament and native
-routes, precision="bf16", and base segmentation above 1<<26 rows.
+Not ported yet (ROADMAP.md): the tournament and native routes,
+precision="bf16", and base segmentation above 1<<26 rows.
 """
 
 from __future__ import annotations
@@ -21,12 +21,28 @@ from local_search_quantization_torch.ops.select_kernels import (
     scan_topk_reference,
 )
 
-__all__ = ["KNNResult", "lsq_query_luts", "lut_scan_block", "linscan_lsq"]
+__all__ = ["KNNResult", "linscan_lsq", "linscan_opq", "linscan_pq", "lsq_query_luts",
+           "lut_scan_block", "pq_query_luts"]
 
 
 class KNNResult(NamedTuple):
     dists: torch.Tensor  # [nq, k] ascending estimated (squared) distances
     ids: torch.Tensor  # [nq, k] int32, 0-based base indices
+
+
+def pq_query_luts(Q: torch.Tensor, C_sub: torch.Tensor) -> torch.Tensor:
+    """Per-query subspace distance tables for PQ/OPQ codes:
+    luts[q, i, c] = ||q_sub_i - C_sub[i, c]||^2, Q [nq, d] -> [nq, m, h].
+
+    C_sub uses the zero-padded subspace layout, so padded dims add 0.
+    """
+    from local_search_quantization_torch.ops.subspaces import split_subspaces
+
+    Qs = split_subspaces(Q, C_sub.shape[0]).transpose(0, 1)  # [nq, m, ds]
+    cross = torch.einsum("qis,ihs->qih", Qs, C_sub)
+    qsq = torch.sum(Qs * Qs, dim=-1)  # [nq, m]
+    csq = torch.sum(C_sub * C_sub, dim=-1)  # [m, h]
+    return qsq[:, :, None] - 2.0 * cross + csq[None, :, :]
 
 
 def lsq_query_luts(Q: torch.Tensor, C: torch.Tensor) -> torch.Tensor:
@@ -68,6 +84,19 @@ def _run_scan(luts_fn, Q: torch.Tensor, B, *, k: int, extra=None,
         return KNNResult(torch.cat([p.dists for p in parts]),
                          torch.cat([p.ids for p in parts]))
     return KNNResult(*scan_topk(luts, Bt, extra, k))
+
+
+def linscan_pq(B, Q: torch.Tensor, C_sub: torch.Tensor, k: int = 10000,
+               **kw) -> KNNResult:
+    """ADC k-NN for PQ codes: B [n, m], Q [nq, d], C_sub [m, h, ds]."""
+    return _run_scan(lambda q: pq_query_luts(q, C_sub), Q, B, k=k, **kw)
+
+
+def linscan_opq(B, Q: torch.Tensor, C_sub: torch.Tensor, R: torch.Tensor,
+                k: int = 10000, **kw) -> KNNResult:
+    """ADC k-NN for OPQ codes: rotate the queries into code space (Q @ R),
+    then scan as PQ."""
+    return linscan_pq(B, Q @ R, C_sub, k, **kw)
 
 
 def linscan_lsq(B, Q: torch.Tensor, C: torch.Tensor, db_norms, k: int = 10000,

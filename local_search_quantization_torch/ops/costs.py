@@ -1,4 +1,4 @@
-"""Reconstruction and quantization error (port of `ops/costs.py`)."""
+"""Reconstruction, quantization error and subspace spans (port of `ops/costs.py`)."""
 
 from __future__ import annotations
 
@@ -25,3 +25,16 @@ def veccost(X: torch.Tensor, B: torch.Tensor, C: torch.Tensor) -> torch.Tensor:
 def qerror(X: torch.Tensor, B: torch.Tensor, C: torch.Tensor) -> torch.Tensor:
     """Mean squared quantization error over the dataset (0-d tensor)."""
     return torch.mean(veccost(X, B, C))
+
+
+def subspace_slices(d: int, m: int) -> list[tuple[int, int]]:
+    """Contiguous (start, stop) spans splitting `d` dims into `m` parts; the
+    first (d % m) parts get one extra dimension (costs.py:50-63)."""
+    base, extra = divmod(d, m)
+    spans = []
+    start = 0
+    for i in range(m):
+        size = base + (1 if i < extra else 0)
+        spans.append((start, start + size))
+        start += size
+    return spans

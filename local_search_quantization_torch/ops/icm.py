@@ -8,12 +8,20 @@ Every step is a whole-batch tensor op, as in the JAX package:
 - accept-if-better: exact per-vector `torch.where` on the fp32 cost, the
   invariant that makes the encoding objective non-increasing.
 
-`condition_mode="kernel"` (what "auto" picks on every device) runs the whole
-encode through K1 (`icm_kernels.ils_encode_streamed`): the CUDA kernel for
-CUDA tensors, its plain PyTorch version for CPU tensors. `"gather"` is the
-round-by-round tensor path. Randomness comes from an explicit
-`torch.Generator`; its draws are made on the generator's device and moved to
-the data's device.
+Condition modes:
+
+- `"kernel"` (what "auto" picks on every device) runs the whole encode
+  through K1 (`icm_kernels.ils_encode_streamed`): the CUDA kernel for CUDA
+  tensors, its plain PyTorch version for CPU tensors. A shape K1 cannot
+  hold (`icm_kernels.ils_kernel_fits`) takes the "matmul" path instead.
+- `"fused"` runs the ILS rounds here, each round's ICM sweeps through K5
+  (`icm_kernels.fused_icm_sweeps`) against bf16 pairwise tables.
+- `"gather"` and `"matmul"` are the round-by-round tensor paths: f32 row
+  gathers, or one masked one-hot product per visit against the tables
+  rounded to bf16.
+
+Randomness comes from an explicit `torch.Generator`; its draws are made on
+the generator's device and moved to the data's device.
 """
 
 from __future__ import annotations
@@ -85,6 +93,28 @@ def _condition(unaries_j: torch.Tensor, binaries_to_j: torch.Tensor,
     return acc
 
 
+def _condition_matmul(unaries_j: torch.Tensor, binaries_to_j: torch.Tensor,
+                      B: torch.Tensor, j: int) -> torch.Tensor:
+    """The conditioning as one masked one-hot product (icm.py:107-131).
+
+    onehot(B) [n, m*h] with codebook j's block zeroed, times binaries_to_j
+    rounded to bf16 and widened back, as an f32 product: [n, h], plus the
+    unary. The tables are rounded as the JAX package rounds them; the
+    product stays f32, as its preferred_element_type=f32 asks.
+    """
+    n, m = B.shape
+    h = unaries_j.shape[1]
+    onehot = torch.zeros((n, m, h), dtype=torch.float32, device=B.device)
+    onehot.scatter_(2, B.long()[:, :, None], 1.0)
+    onehot[:, j] = 0.0
+    lut = binaries_to_j.to(torch.bfloat16).to(torch.float32).reshape(m * h, h)
+    return unaries_j + onehot.reshape(n, m * h) @ lut
+
+
+_CONDITION_FNS = {"gather": _condition, "matmul": _condition_matmul}
+_MODES = ("kernel", "fused", "gather", "matmul")
+
+
 def cost_from_luts(xsq: torch.Tensor, unaries: torch.Tensor,
                    binaries: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
     """||x||^2 + sum_i unaries[n, i, B_i] + sum_{i<j} binaries[i, j, B_i, B_j].
@@ -106,30 +136,41 @@ def cost_from_luts(xsq: torch.Tensor, unaries: torch.Tensor,
 
 
 def resolve_condition_mode(mode: str) -> str:
-    """"auto" -> "kernel" on every device; "kernel" and "gather" pass through.
-
-    The JAX package's "matmul" and "fused" modes are TPU matrix-unit routes
-    and are not ported.
-    """
+    """"auto" -> "kernel" on every device; "kernel", "fused", "gather" and
+    "matmul" pass through."""
     if mode == "auto":
         return "kernel"
-    if mode not in ("kernel", "gather"):
-        raise ValueError(f"condition_mode must be auto/kernel/gather, got {mode!r}")
+    if mode not in _MODES:
+        raise ValueError(f"condition_mode must be auto or one of {_MODES}, "
+                         f"got {mode!r}")
+    return mode
+
+
+def encode_route(mode: str, m: int, h: int) -> str:
+    """The condition mode `ils_encode` runs for `mode` at shape (m, h):
+    "kernel" becomes "matmul" where K1 cannot hold the shape (icm.py:345-351)."""
+    from local_search_quantization_torch.ops.icm_kernels import ils_kernel_fits
+
+    mode = resolve_condition_mode(mode)
+    if mode == "kernel" and not ils_kernel_fits(m, h):
+        return "matmul"
     return mode
 
 
 def icm_sweeps(B: torch.Tensor, unaries: torch.Tensor, binaries: torch.Tensor,
-               order, icmiter: int) -> torch.Tensor:
-    """`icmiter` full ICM sweeps over the codebooks in `order` (gather path).
+               order, icmiter: int, *, condition_mode: str = "gather") -> torch.Tensor:
+    """`icmiter` full ICM sweeps over the codebooks in `order`.
 
     B [n, m]; unaries [n, m, h]; binaries [m, m, h, h]; order [m] visit
-    permutation shared by all rows. Returns new codes with B's dtype.
+    permutation shared by all rows; condition_mode "gather" or "matmul".
+    Returns new codes with B's dtype.
     """
+    cond_fn = _CONDITION_FNS[condition_mode]
     B = B.clone()
     order = [int(j) for j in order]
     for _ in range(icmiter):
         for j in order:
-            scores = _condition(unaries[:, j, :], binaries[:, j], B, j)
+            scores = cond_fn(unaries[:, j, :], binaries[:, j], B, j)
             B[:, j] = torch.argmin(scores, dim=-1).to(B.dtype)
     return B
 
@@ -153,9 +194,9 @@ def ils_encode(gen: torch.Generator, X: torch.Tensor, B0: torch.Tensor,
                        or milestones[0] < 1 or milestones[-1] > ilsiter):
         raise ValueError(f"milestones must be strictly increasing rounds in "
                          f"[1, {ilsiter}], got {milestones}")
-    condition_mode = resolve_condition_mode(condition_mode)
     dev = X.device
     m, h = C.shape[0], C.shape[1]
+    condition_mode = encode_route(condition_mode, m, h)
     B0 = B0.to(device=dev, dtype=torch.int32).contiguous()
     unaries = get_unaries(X, C)
     binaries = get_binaries(C)
@@ -225,13 +266,22 @@ def ils_encode(gen: torch.Generator, X: torch.Tensor, B0: torch.Tensor,
             fb, fc = rescale(stats[:, 0], stats[:, 1])
         return finalize(B, ms_B, fb, fc)
 
+    if condition_mode == "fused":
+        from local_search_quantization_torch.ops.icm_kernels import fused_icm_sweeps
+
+        binaries_bf16 = binaries.to(torch.bfloat16)  # once per encode (icm.py:387)
     B, cost = B0, cost0
     ms_B, ms_cost = [None] * len(milestones), [None] * len(milestones)
     fbs, fcs = [], []
     for r in range(ilsiter):
-        order = (_randperm(gen, m, dev).tolist() if randord else list(range(m)))
+        order = (_randperm(gen, m, dev) if randord
+                 else torch.arange(m, dtype=torch.int32, device=dev))
         Bp = perturb_codes(gen, B, npert, h)
-        Bp = icm_sweeps(Bp, unaries, binaries, order, icmiter)
+        if condition_mode == "fused":
+            Bp = fused_icm_sweeps(Bp, unaries, binaries_bf16, order, icmiter=icmiter)
+        else:
+            Bp = icm_sweeps(Bp, unaries, binaries, order.tolist(), icmiter,
+                            condition_mode=condition_mode)
         newcost = cost_from_luts(xsq, unaries, binaries, Bp)
         better = newcost < cost
         fbs.append(better.sum().float())

@@ -1,13 +1,18 @@
-"""K1: the whole-ILS encode, as one CUDA launch or its plain PyTorch version.
+"""The ICM kernels, each as CUDA launches or its plain PyTorch version.
 
-Port of `local_search_quantization_tpu.ops.icm_pallas.fused_ils_encode`
-(kernel `_ils_kernel_pp`). The randomness comes in as tensors, as the TPU
-wrapper streams it (icm_pallas.py:718-726), so the CUDA kernel
-(`csrc/ils_encode.cu`) and `ils_encode_streamed_reference` compute the same
-function on the same inputs and can be compared bit for bit.
+- K1 `ils_encode_streamed`: the whole-ILS encode in one launch. Port of
+  `local_search_quantization_tpu.ops.icm_pallas.fused_ils_encode` (kernel
+  `_ils_kernel_pp`). The randomness comes in as tensors, as the TPU wrapper
+  streams it (icm_pallas.py:718-726), so the CUDA kernel
+  (`csrc/ils_encode.cu`) and `ils_encode_streamed_reference` compute the
+  same function on the same inputs and can be compared bit for bit.
+- K5/K6 `fused_icm_sweeps`: one ILS round's `icmiter` ICM sweeps in one
+  launch, against bf16 pairwise tables. Port of `icm_pallas.fused_icm_sweeps`
+  (kernels `_icm_kernel_v2`, variant "v2", and `_icm_kernel`, variant "v1");
+  CUDA in `csrc/icm_sweeps.cu`, plain version `fused_icm_sweeps_reference`.
 
-`ils_encode_streamed` takes the plain version only for tensors on the CPU; a
-CUDA tensor goes to the kernel, or the call raises.
+Each wrapper takes the plain version only for tensors on the CPU; a CUDA
+tensor goes to the kernel, or the call raises.
 """
 
 from __future__ import annotations
@@ -25,6 +30,21 @@ _I = ctypes.c_int
 
 def _ptr(t: torch.Tensor | None) -> int | None:
     return None if t is None or t.numel() == 0 else t.data_ptr()
+
+
+# K1's launch geometry, as csrc/ils_encode.cu sets it: 4 rows per block,
+# each with its [m, h] f32 unaries and 2m int codes in shared memory, at
+# most 32 candidates per lane.
+_ILS_WARPS, _SMEM_LIMIT, _ILS_MAX_H = 4, 227 * 1024, 1024
+
+
+def ils_kernel_fits(m: int, h: int) -> bool:
+    """Whether K1 takes the shape (m, h): decided before any launch, from
+    the same sizes as the library's `lsq_ils_smem_bytes`/`lsq_ils_max_h`,
+    with no build. `ils_encode(condition_mode="kernel")` takes the "matmul"
+    path for a shape K1 cannot hold."""
+    return (1 <= m <= 32 and h <= _ILS_MAX_H
+            and _ILS_WARPS * (m * h * 4 + 2 * m * 4) <= _SMEM_LIMIT)
 
 
 def ils_encode_streamed_reference(unaries, binaries, xsq, B0, orders,
@@ -147,3 +167,111 @@ def ils_encode_streamed(unaries, binaries, xsq, B0, orders, pert_keys,
 
 
 ils_encode_streamed.launches = 0
+
+
+def binaries_to_j_stacked(binaries: torch.Tensor) -> torch.Tensor:
+    """[m, m, h, h] -> [m, m*h, h] with the (j, j) blocks zeroed:
+    bint[j][k*h + a, c] = binaries[k, j][a, c] (icm_pallas.py:809-815)."""
+    m, _, h, _ = binaries.shape
+    mask = (1 - torch.eye(m, dtype=binaries.dtype, device=binaries.device))
+    return (binaries.transpose(0, 1) * mask[:, :, None, None]).reshape(m, m * h, h)
+
+
+_VARIANTS = ("v2", "v1")
+
+
+def fused_icm_sweeps_reference(B, unaries, binaries_bf16, order, *, icmiter: int,
+                               variant: str = "v2") -> torch.Tensor:
+    """Plain PyTorch version of K5 ("v2") and K6 ("v1"), in each TPU kernel's
+    summation order.
+
+    Each visit to codebook j (in `order`, `icmiter` times over) sets
+    B[:, j] = argmin_c over the conditioned scores, lowest c on ties. The
+    bf16 table values are widened exactly to f32. "v2" sums the pair rows
+    bint[j][k*h + B_k] of the j-stacked table for k != j in k order, then
+    adds the unary; "v1" starts from the unary and adds
+    binaries[k, j][B_k] for k = 0..m-1, k != j.
+
+    B [n, m] int, unaries [n, m, h] f32, binaries_bf16 [m, m, h, h] bf16,
+    order [m] (a permutation). Returns new codes [n, m] int32.
+    """
+    if variant not in _VARIANTS:
+        raise ValueError(f"variant must be one of {_VARIANTS}, got {variant!r}")
+    n, m = B.shape
+    h = unaries.shape[2]
+    cur = B.long().clone()
+    order = [int(j) for j in torch.as_tensor(order).tolist()]
+    if variant == "v1":
+        table = binaries_bf16.float()
+        for _ in range(icmiter):
+            for j in order:
+                cur[:, j] = torch.argmin(_condition(unaries[:, j], table[:, j], cur, j),
+                                         dim=1)
+        return cur.to(torch.int32)
+    bint = binaries_to_j_stacked(binaries_bf16).float()  # [m, m*h, h]
+    for _ in range(icmiter):
+        for j in order:
+            cond = torch.zeros((n, h), dtype=torch.float32, device=unaries.device)
+            for k in range(m):
+                if k != j:
+                    cond = cond + bint[j][k * h + cur[:, k]]
+            cur[:, j] = torch.argmin(unaries[:, j] + cond, dim=1)
+    return cur.to(torch.int32)
+
+
+def fused_icm_sweeps(B, unaries, binaries_bf16, order, *, icmiter: int,
+                     variant: str = "v2") -> torch.Tensor:
+    """K5 ("v2") or K6 ("v1"): `icmiter` ICM sweeps, one launch for a CUDA tensor.
+
+    Same arguments and result as `fused_icm_sweeps_reference`, which CPU
+    tensors get. On the card B and order are int32, unaries f32 and
+    binaries_bf16 bf16, all contiguous. Counts its launches per variant in
+    `fused_icm_sweeps.launches`.
+    """
+    if variant not in _VARIANTS:
+        raise ValueError(f"variant must be one of {_VARIANTS}, got {variant!r}")
+    dev = unaries.device
+    if dev.type == "cpu":
+        return fused_icm_sweeps_reference(B, unaries, binaries_bf16, order,
+                                          icmiter=icmiter, variant=variant)
+    if dev.type != "cuda":
+        raise ValueError(f"fused_icm_sweeps: unsupported device {dev}")
+    n, m = B.shape
+    h = unaries.shape[2]
+    want = {
+        "B": (B, torch.int32, (n, m)),
+        "unaries": (unaries, torch.float32, (n, m, h)),
+        "binaries_bf16": (binaries_bf16, torch.bfloat16, (m, m, h, h)),
+        "order": (order, torch.int32, (m,)),
+    }
+    for name, (t, dtype, shape) in want.items():
+        if t.device != dev or t.dtype != dtype or tuple(t.shape) != shape \
+                or not t.is_contiguous():
+            raise ValueError(
+                f"fused_icm_sweeps: {name} must be a contiguous {dtype} "
+                f"{shape} tensor on {dev}, got {t.dtype} {tuple(t.shape)} "
+                f"on {t.device}")
+    if not 1 <= m <= 32:
+        raise ValueError(f"fused_icm_sweeps: needs 1 <= m <= 32, got m={m}")
+    lib = _build.load("icm_sweeps")
+    lib.lsq_icm_smem_bytes.argtypes = [_I, _I]
+    if lib.lsq_icm_smem_bytes(m, h) > 227 * 1024 or h > lib.lsq_icm_max_h():
+        raise ValueError(f"fused_icm_sweeps: m={m}, h={h} needs more shared "
+                         "memory or registers than the kernel has")
+    out = torch.empty((n, m), dtype=torch.int32, device=dev)
+    if n == 0:
+        return out
+    visits = order.repeat(icmiter).contiguous()
+    lut = binaries_to_j_stacked(binaries_bf16).contiguous() if variant == "v2" \
+        else binaries_bf16
+    fn = lib.lsq_icm_sweeps_v2 if variant == "v2" else lib.lsq_icm_sweeps_v1
+    fn.argtypes = [_P] * 4 + [_I] * 4 + [_P] * 2
+    fn.restype = _I
+    err = fn(_ptr(B), _ptr(unaries), _ptr(lut), _ptr(visits), n, m, h,
+             icmiter * m, _ptr(out), torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(lib, err, f"icm_sweeps_{variant} kernel launch")
+    fused_icm_sweeps.launches[variant] += 1
+    return out
+
+
+fused_icm_sweeps.launches = {v: 0 for v in _VARIANTS}

@@ -33,3 +33,11 @@ def get_binaries(C: torch.Tensor) -> torch.Tensor:
     binaries[i, j]^T); the diagonal blocks are never read by ICM.
     """
     return (2.0 * torch.einsum("ihd,jkd->ijhk", C, C)).contiguous()
+
+
+def get_chain_binaries(C: torch.Tensor) -> torch.Tensor:
+    """Chain pairwise terms: binaries[i] = 2 * C[i] @ C[i+1]^T for i=0..m-2.
+
+    C: [m, h, d] -> [m-1, h, h] float32, contiguous.
+    """
+    return (2.0 * torch.einsum("ihd,ikd->ihk", C[:-1], C[1:])).contiguous()

@@ -1,15 +1,21 @@
 """Codebook update: least squares against the one-hot code design.
 
-Port of the unstructured update in `ops/solver.py` (solver.py:39-98,201-225):
-with A = [onehot(B[:,0]) ... onehot(B[:,m-1])] the implicit [n, m*h] design,
-solve (A^T A + lambda I) K = A^T X for all d columns at once. The one-hot
-products are plain matrix products (the JAX package leaves them to XLA);
-the solve is a Cholesky factorization with the same relative ridge.
+Port of `ops/solver.py`: with A = [onehot(B[:,0]) ... onehot(B[:,m-1])] the
+implicit [n, m*h] design, solve (A^T A + lambda I) K = A^T X for all d
+columns at once (solver.py:39-98,201-225). The structured updates (chain,
+and any dimension-to-codebook coverage; solver.py:233-375) split the problem
+into smaller dense solves. The one-hot products are plain matrix products
+(the JAX package leaves them to XLA); every solve is a Cholesky
+factorization with the same relative ridge, lambda = ridge * trace(G) / rows.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
+import torch.nn.functional as F
+
+from local_search_quantization_torch.ops.costs import subspace_slices
 
 
 def code_gram(B: torch.Tensor, X: torch.Tensor, h: int, *,
@@ -33,17 +39,25 @@ def code_gram(B: torch.Tensor, X: torch.Tensor, h: int, *,
     return G, AtX
 
 
+def _ridge_solve(G: torch.Tensor, AtX: torch.Tensor, ridge: float) -> torch.Tensor:
+    """(G + lambda I) K = AtX by Cholesky, lambda = ridge * trace(G) / rows.
+
+    The relative ridge (solver.py:94) keeps unused codes at ~0 and
+    regularizes the rank deficiency of additive codebooks. G may carry a
+    leading batch axis.
+    """
+    r = G.shape[-1]
+    lam = ridge * torch.diagonal(G, dim1=-2, dim2=-1).sum(-1) / r
+    eye = torch.eye(r, dtype=G.dtype, device=G.device)
+    L = torch.linalg.cholesky(G + lam[..., None, None] * eye)
+    return torch.cholesky_solve(AtX, L)
+
+
 def _solve_cholesky(B: torch.Tensor, X: torch.Tensor, h: int,
                     ridge: float = 1e-4) -> torch.Tensor:
     m = B.shape[1]
     G, AtX = code_gram(B, X, h)
-    # Relative ridge (solver.py:94): keeps unused codes at ~0 and regularizes
-    # the rank deficiency of additive codebooks.
-    lam = ridge * torch.trace(G) / G.shape[0]
-    L = torch.linalg.cholesky(
-        G + lam * torch.eye(G.shape[0], dtype=G.dtype, device=G.device))
-    K = torch.cholesky_solve(AtX, L)
-    return K.reshape(m, h, X.shape[1])
+    return _ridge_solve(G, AtX, ridge).reshape(m, h, X.shape[1])
 
 
 def update_codebooks(X: torch.Tensor, B: torch.Tensor, h: int, *,
@@ -60,3 +74,80 @@ def update_codebooks(X: torch.Tensor, B: torch.Tensor, h: int, *,
             f"codebook method {method!r} is not ported yet (ROADMAP.md, "
             "modules queue, item 2: batched LSQR); use 'cholesky'")
     raise ValueError(f"unknown codebook update method: {method!r}")
+
+
+def chain_dims(d: int, m: int) -> list[tuple[int, int]]:
+    """Dimension span of each of m chain codebooks: codebook i spans
+    subspaces i-1..i of the m-1 chain subspaces."""
+    sub = subspace_slices(d, m - 1)
+    spans = [sub[0]]
+    for i in range(1, m - 1):
+        spans.append((sub[i - 1][0], sub[i][1]))
+    spans.append(sub[-1])
+    return spans
+
+
+def _chain_solve(B: torch.Tensor, Xpad: torch.Tensor, h: int,
+                 ridge: float = 1e-4) -> torch.Tensor:
+    """The m-1 independent 2-codebook systems of the chain layout, batched.
+
+    Subspace s is covered by exactly the codebook pair (s, s+1), so each is
+    one [2h, 2h] solve. Xpad: [m-1, n, ds_max] (subspaces zero-padded to
+    equal width). Returns [m-1, 2h, ds_max].
+    """
+    onehot = F.one_hot(B.long(), h).to(Xpad.dtype).transpose(0, 1)  # [m, n, h]
+    counts = torch.sum(onehot, dim=1)  # [m, h]
+    oh_a, oh_b = onehot[:-1], onehot[1:]  # [m-1, n, h]
+    cooc = torch.bmm(oh_a.transpose(1, 2), oh_b)  # [m-1, h, h]
+    G = torch.cat([torch.cat([torch.diag_embed(counts[:-1]), cooc], dim=2),
+                   torch.cat([cooc.transpose(1, 2), torch.diag_embed(counts[1:])],
+                             dim=2)], dim=1)  # [m-1, 2h, 2h]
+    AtX = torch.cat([torch.bmm(oh_a.transpose(1, 2), Xpad),
+                     torch.bmm(oh_b.transpose(1, 2), Xpad)], dim=1)  # [m-1, 2h, ds]
+    return _ridge_solve(G, AtX, ridge)
+
+
+def update_codebooks_chain(X: torch.Tensor, B: torch.Tensor, h: int, *,
+                           ridge: float = 1e-4) -> torch.Tensor:
+    """Chain-structured codebook update: full-dimensional C [m, h, d]."""
+    n, d = X.shape
+    m = B.shape[1]
+    sub = subspace_slices(d, m - 1)
+    ds_max = max(b - a for a, b in sub)
+    Xpad = torch.stack([F.pad(X[:, a:b], (0, ds_max - (b - a))) for a, b in sub])
+    K = _chain_solve(B, Xpad, h, ridge)  # [m-1, 2h, ds_max]
+    C = torch.zeros((m, h, d), dtype=torch.float32, device=X.device)
+    for s, (a, b) in enumerate(sub):
+        C[s, :, a:b] += K[s, :h, :b - a]
+        C[s + 1, :, a:b] += K[s, h:, :b - a]
+    return C
+
+
+def update_codebooks_struct(X: torch.Tensor, B: torch.Tensor, h: int,
+                            dim2cb: np.ndarray, *, ridge: float = 1e-4) -> torch.Tensor:
+    """Structured update for any coverage: dim2cb [d, m] bool, dim2cb[dim, i]
+    iff codebook i spans dimension `dim`. Dimensions that share a coverage
+    pattern form one restricted dense solve. Returns C [m, h, d], zero
+    outside each codebook's span."""
+    n, d = X.shape
+    m = B.shape[1]
+    dim2cb = np.asarray(dim2cb, bool)
+    if dim2cb.shape != (d, m):
+        raise ValueError(f"dim2cb must be [d, m] = {(d, m)}, got {dim2cb.shape}")
+    patterns: dict[tuple, list[int]] = {}
+    for dim in range(d):
+        patterns.setdefault(tuple(dim2cb[dim]), []).append(dim)
+    G_full, AtX_full = code_gram(B, X, h)
+    C = torch.zeros((m, h, d), dtype=torch.float32, device=X.device)
+    for pat, dims in patterns.items():
+        active = [i for i in range(m) if pat[i]]
+        if not active:
+            continue
+        cols = torch.as_tensor(np.concatenate(
+            [np.arange(i * h, (i + 1) * h) for i in active]), device=X.device)
+        dims_t = torch.as_tensor(dims, device=X.device)
+        K = _ridge_solve(G_full[cols][:, cols], AtX_full[cols][:, dims_t], ridge)
+        K = K.reshape(len(active), h, len(dims))
+        for ai, i in enumerate(active):
+            C[i][:, dims_t] += K[ai]
+    return C

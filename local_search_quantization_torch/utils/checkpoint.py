@@ -11,16 +11,23 @@ import numpy as np
 import torch
 
 _INT_FIELDS = ("B", "B_norms")
+# Fields kept as float32 ndarrays on the host (objective traces).
+_HOST_FIELDS = ("obj",)
 
 
 def _registry() -> dict[str, type]:
-    from local_search_quantization_torch.models.lsq import LSQModel
+    from local_search_quantization_torch.models import (
+        ChainQModel,
+        LSQModel,
+        OPQModel,
+        PQModel,
+    )
 
-    return {"LSQModel": LSQModel}
+    return {cls.__name__: cls for cls in (PQModel, OPQModel, ChainQModel, LSQModel)}
 
 
-def lsq_model_to_numpy(model) -> dict[str, np.ndarray]:
-    """LSQModel -> {field: ndarray} with the JAX package's dtypes
+def model_to_numpy(model) -> dict[str, np.ndarray]:
+    """A model NamedTuple -> {field: ndarray} with the JAX package's dtypes
     (float32 arrays, int32 codes)."""
     out = {}
     for f in model._fields:
@@ -30,25 +37,37 @@ def lsq_model_to_numpy(model) -> dict[str, np.ndarray]:
     return out
 
 
-def lsq_model_from_numpy(fields, device="cpu"):
-    """{field: array} (e.g. a JAX LSQModel's fields) -> the port's LSQModel,
-    tensors on `device` (obj stays a float32 ndarray)."""
-    from local_search_quantization_torch.models.lsq import LSQModel
+def model_from_numpy(name: str, fields, device="cpu"):
+    """{field: array} (e.g. a JAX model's fields) -> the port's model of
+    class `name`, tensors on `device` (objective traces stay float32
+    ndarrays)."""
+    cls = _registry().get(name)
+    if cls is None:
+        raise ValueError(f"unknown or unported model type {name!r}")
 
     def conv(f):
         a = np.asarray(fields[f])
-        if f == "obj":
+        if f in _HOST_FIELDS:
             return a.astype(np.float32)
         dtype = torch.int32 if f in _INT_FIELDS else torch.float32
         return torch.as_tensor(np.array(a)).to(device, dtype)
 
-    return LSQModel(**{f: conv(f) for f in LSQModel._fields})
+    return cls(**{f: conv(f) for f in cls._fields})
+
+
+def lsq_model_to_numpy(model) -> dict[str, np.ndarray]:
+    """LSQModel -> {field: ndarray}; see model_to_numpy."""
+    return model_to_numpy(model)
+
+
+def lsq_model_from_numpy(fields, device="cpu"):
+    """{field: array} -> the port's LSQModel; see model_from_numpy."""
+    return model_from_numpy("LSQModel", fields, device)
 
 
 def save_model(path: str, model) -> None:
     """Save a model NamedTuple to an .npz file."""
-    np.savez_compressed(path, __model__=type(model).__name__,
-                        **lsq_model_to_numpy(model))
+    np.savez_compressed(path, __model__=type(model).__name__, **model_to_numpy(model))
 
 
 def load_model(path: str, device="cpu"):
@@ -57,4 +76,4 @@ def load_model(path: str, device="cpu"):
         name = str(data["__model__"])
         if name not in _registry():
             raise ValueError(f"unknown or unported model type {name!r} in {path}")
-        return lsq_model_from_numpy({f: data[f] for f in data.files}, device)
+        return model_from_numpy(name, {f: data[f] for f in data.files}, device)

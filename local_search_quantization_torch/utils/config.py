@@ -83,8 +83,9 @@ class LSQConfig:
     codebook_method: str = "cholesky"  # or "lsqr" for reference parity
     ridge: float = 1e-4
     lsqr_niter: int = 32
-    # ICM conditioning backend: "auto" = the whole-ILS kernel (CUDA on a
-    # GPU, its plain PyTorch version on the CPU); or force "gather".
+    # ICM conditioning backend: "auto" = "kernel", the whole-ILS kernel
+    # (CUDA on a GPU, its plain PyTorch version on the CPU); "fused" = the
+    # per-round ICM sweeps kernel; "gather" / "matmul" = tensor paths.
     condition_mode: str = "auto"
     # Stochastic relaxation (beyond the reference; LSQ++, Martinez et al.
     # ECCV 2018, arXiv:1806.05643): "SR-D" perturbs the data targets of the

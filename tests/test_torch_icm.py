@@ -181,7 +181,9 @@ def test_encode_chunked_pads_tail_and_matches_whole_encode_quality():
 
 
 def test_resolve_condition_mode():
+    """Every mode the JAX package accepts passes; an unknown one raises."""
     assert ticm.resolve_condition_mode("auto") == "kernel"
-    assert ticm.resolve_condition_mode("gather") == "gather"
+    for mode in ("kernel", "fused", "gather", "matmul"):
+        assert ticm.resolve_condition_mode(mode) == mode
     with pytest.raises(ValueError):
-        ticm.resolve_condition_mode("fused")
+        ticm.resolve_condition_mode("pallas")

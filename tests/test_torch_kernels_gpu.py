@@ -11,10 +11,14 @@ import numpy as np
 import pytest
 import torch
 
-from local_search_quantization_torch.ops import luts
+from local_search_quantization_torch import _build
+from local_search_quantization_torch.ops import icm, luts
 from local_search_quantization_torch.ops.icm_kernels import (
+    fused_icm_sweeps,
+    fused_icm_sweeps_reference,
     ils_encode_streamed,
     ils_encode_streamed_reference,
+    ils_kernel_fits,
 )
 from local_search_quantization_torch.ops.select_kernels import (
     scan_topk,
@@ -126,3 +130,83 @@ def test_wrappers_reject_bad_inputs(cuda):
     args[3] = args[3].long()
     with pytest.raises(ValueError):
         ils_encode_streamed(*args, icmiter=1)
+
+
+def _sweeps_inputs(dev, n, d, m, h, integer, seed=0):
+    rng = np.random.default_rng(seed)
+    if integer:
+        X = rng.integers(-3, 4, (n, d)).astype(np.float32)
+        C = rng.integers(-1, 2, (m, h, d)).astype(np.float32)
+    else:
+        X = rng.normal(size=(n, d)).astype(np.float32) * 10
+        C = rng.normal(size=(m, h, d)).astype(np.float32) * 3
+    X, C = torch.as_tensor(X, device=dev), torch.as_tensor(C, device=dev)
+    return (torch.as_tensor(rng.integers(0, h, (n, m), dtype=np.int32), device=dev),
+            luts.get_unaries(X, C), luts.get_binaries(C).to(torch.bfloat16),
+            torch.as_tensor(rng.permutation(m).astype(np.int32), device=dev))
+
+
+@pytest.mark.parametrize("variant", ["v2", "v1"])
+@pytest.mark.parametrize("shape", [
+    # (n, d, m, h, icmiter, integer)
+    (4096, 32, 7, 256, 2, True),
+    (3001, 16, 4, 20, 3, False),  # h < 32: idle lanes; ragged last block
+    (2048, 64, 8, 256, 4, False),
+    (1024, 16, 3, 300, 2, False),  # h > 256: 16 candidates per lane
+    (512, 8, 1, 64, 2, False),  # m = 1: no pair terms
+])
+def test_icm_sweeps_kernels_match_plain_version(cuda, variant, shape):
+    n, d, m, h, icmiter, integer = shape
+    args = _sweeps_inputs(cuda, n, d, m, h, integer)
+    before = fused_icm_sweeps.launches[variant]
+    got = fused_icm_sweeps(*args, icmiter=icmiter, variant=variant)
+    want = fused_icm_sweeps_reference(*args, icmiter=icmiter, variant=variant)
+    assert fused_icm_sweeps.launches[variant] == before + 1
+    assert got.dtype == torch.int32
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    assert (got != args[0]).any()
+
+
+def test_fused_ils_encode_on_the_card_runs_k5_every_round(cuda):
+    """ils_encode(condition_mode="fused") on CUDA tensors: one K5 launch per
+    ILS round, never K1, and the accept invariant."""
+    B0, _, _, _ = _sweeps_inputs(cuda, 2048, 32, 7, 64, False)
+    rng = np.random.default_rng(1)
+    X = torch.as_tensor(rng.normal(size=(2048, 32)).astype(np.float32), device=cuda)
+    C = torch.as_tensor(rng.normal(size=(7, 64, 32)).astype(np.float32), device=cuda)
+    k1, k5 = ils_encode_streamed.launches, fused_icm_sweeps.launches["v2"]
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    res = icm.ils_encode(gen, X, B0, C, ilsiter=5, icmiter=2, npert=2,
+                         condition_mode="fused")
+    assert fused_icm_sweeps.launches["v2"] == k5 + 5
+    assert ils_encode_streamed.launches == k1
+    cost0 = icm.cost_from_luts((X * X).sum(-1), luts.get_unaries(X, C),
+                               luts.get_binaries(C), B0)
+    assert (res.cost <= cost0).all() and (res.cost < cost0).any()
+
+
+def test_ils_kernel_fits_mirrors_the_library(cuda):
+    """The pure shape rule that routes "kernel" to "matmul" agrees with
+    the K1 library's own size functions."""
+    import ctypes
+
+    lib = _build.load("ils_encode")
+    lib.lsq_ils_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
+    for m in (1, 4, 7, 8, 16, 32):
+        for h in (16, 256, 512, 1000, 1024, 1025, 2048):
+            lib_fits = (lib.lsq_ils_smem_bytes(m, h) <= 227 * 1024
+                        and h <= lib.lsq_ils_max_h())
+            assert ils_kernel_fits(m, h) == lib_fits, (m, h)
+
+
+def test_icm_sweeps_wrapper_rejects_bad_inputs(cuda):
+    B, u, b, order = _sweeps_inputs(cuda, 64, 8, 3, 16, True)
+    with pytest.raises(ValueError):
+        fused_icm_sweeps(B, u, b.float(), order, icmiter=1)  # f32 tables
+    with pytest.raises(ValueError):
+        fused_icm_sweeps(B.long(), u, b, order, icmiter=1)
+    with pytest.raises(ValueError):
+        fused_icm_sweeps(B, u.transpose(1, 2).contiguous().transpose(1, 2), b, order,
+                         icmiter=1)  # not contiguous
+    with pytest.raises(ValueError):
+        fused_icm_sweeps(B, u, b, order, icmiter=1, variant="v3")

@@ -140,5 +140,5 @@ def test_checkpoint_port_save_loads_in_jax(tmp_path):
         assert a.dtype == b.dtype, f
         np.testing.assert_array_equal(a, b)
     with pytest.raises(ValueError, match="unported"):
-        np.savez(os.path.join(tmp_path, "pq.npz"), __model__="PQModel")
-        tckpt.load_model(os.path.join(tmp_path, "pq.npz"))
+        np.savez(os.path.join(tmp_path, "rvq.npz"), __model__="RVQModel")
+        tckpt.load_model(os.path.join(tmp_path, "rvq.npz"))
