@@ -21,6 +21,14 @@ nothing of JAX. Phases:
 3. K2 (the ADC scan + exact top-k) against its plain version over a
    1M-row base, 1000 queries at k=1000 (the main path's query shape): ids
    and dists identical, for uint8 and int32 code layouts;
+3b. K3 (the streamed select) on K2's inputs: "sorted" cold, "unsorted" cold
+   and "sorted" with the warm bound t0 of `scan_topk_warm`, against its
+   plain version (dists on every row; ids on every row for "sorted", on the
+   rows whose k-th value is not tied for "unsorted") and against K2; peak
+   device memory beside K2's;
+3c. K4 (the key append) on the same inputs with the warm t0: appended id
+   sets and counts identical to the plain version; the key variant's
+   certificate clear and its (d, i) identical to K2's;
 4. main path A through `demos/demo_lsq_torch.py`'s functions on the
    synthetic SIFT-statistics corpus (100k train, 1M base, 1000 queries):
    OPQ -> ChainQ -> LSQ training (m=7, h=256, niter=10, ilsiter=8) with
@@ -29,12 +37,22 @@ nothing of JAX. Phases:
 4b. main path B: LSQ trained again from path A's OPQ/ChainQ result with
    condition_mode "fused" (K5 in every ILS round), the base encoded with
    "fused", then norms, query and recall as in path A.
+4c. main path C, the serving path: `Index.build("lsq", refine="sq8")` on
+   the same corpus, `save` and `Index.load` (codes and model identical),
+   then `search` at k=1000 on every route: the default (K2), the select
+   variants "sorted" and "unsorted" (K3, warm; "unsorted" with the widen)
+   and "key" (K4, its pre-scan on K3), the tournament in store and in
+   recompute mode, and "exact"; precision "bf16" on the default, sorted and
+   exact routes; k=10000 on K2, the tournament and K3; refine; then delete,
+   add and compact.
    In each path the kernels' launch counters are zeroed just before it and
    the path's kernels must be > 0 after it; the accept invariant, the
    recall curve and a plain-version check of the query results must hold.
+   Path C's f32 routes must return identical ids, and its bf16 routes too.
 
 Prints the kernels' JSON line and then, last, the device line. Any failed
-check exits non-zero before those lines are printed.
+check exits non-zero before those lines are printed. Every time is printed
+beside the card's name and power limit.
 """
 
 from __future__ import annotations
@@ -62,8 +80,14 @@ KERNELS = {
                       "local_search_quantization_tpu/ops/icm_pallas.py:81"),
     "icm_sweeps_v1": ("local_search_quantization_torch/csrc/icm_sweeps.cu",
                       "local_search_quantization_tpu/ops/icm_pallas.py:37"),
+    "scan_select": ("local_search_quantization_torch/csrc/scan_select.cu",
+                    "local_search_quantization_tpu/ops/select_pallas.py:123"),
+    "scan_key": ("local_search_quantization_torch/csrc/scan_key.cu",
+                 "local_search_quantization_tpu/ops/select_pallas.py:488"),
 }
 K2_N, K2_QUERIES, K = 1_000_000, 1000, 1000
+# The card's name and power limit (nvidia-smi), printed beside every time.
+CARD = "not read"
 MAIN = dict(ntrain=100_000, nbase=1_000_000, nquery=1000, niter=10, ilsiter_base=16)
 
 
@@ -145,7 +169,7 @@ def compare_k1(torch, args, label, time_it):
     plain = cuda_ms(torch, lambda: k1.ils_encode_streamed_reference(
         *args, icmiter=ICMITER), 1)
     n, rounds = args[0].shape[0], args[4].shape[0]
-    print(f"K1 {label} time: kernel {ms:.3f} ms, plain {plain:.3f} ms "
+    print(f"[{CARD}] K1 {label} time: kernel {ms:.3f} ms, plain {plain:.3f} ms "
           f"({n * rounds / ms / 1e3:.3f}M row-rounds/s kernel)")
     return err, ms, plain
 
@@ -197,7 +221,7 @@ def compare_sweeps(torch, args, label, time_it):
             ms = cuda_ms(torch, lambda: ik.fused_icm_sweeps(*args, **kw), 5)
             plain = cuda_ms(torch, lambda: ik.fused_icm_sweeps_reference(*args, **kw), 1)
             n = args[0].shape[0]
-            print(f"K{5 if variant == 'v2' else 6} ({variant}) {label} time: kernel "
+            print(f"[{CARD}] K{5 if variant == 'v2' else 6} ({variant}) {label} time: kernel "
                   f"{ms:.3f} ms, plain {plain:.3f} ms ({n / ms / 1e3:.3f}M rows/s "
                   f"kernel, {ICMITER} sweeps)")
         out[variant] = (err, ms, plain)
@@ -253,10 +277,127 @@ def phase_k2(torch, C, data, dev):
     times = {name: cuda_ms(torch, lambda Bt=Bt: k2.scan_topk(luts, Bt, extra, K), 5)
              for name, Bt in (("uint8", Bt8), ("int32", Bt32))}
     plain = cuda_ms(torch, lambda: k2.scan_topk_reference(luts, Bt8, extra, K), 2)
-    print(f"K2 time: kernel {times['uint8']:.3f} ms (uint8 codes), "
+    print(f"[{CARD}] K2 time: kernel {times['uint8']:.3f} ms (uint8 codes), "
           f"{times['int32']:.3f} ms (int32 codes), plain {plain:.3f} ms, "
           f"for {K2_QUERIES} queries")
-    return err, times["uint8"], plain
+    return (err, times["uint8"], plain), (luts, Bt8, extra, want)
+
+
+def peak_gib(torch, fn) -> float:
+    """Peak device memory allocated during fn(), GiB."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fn()
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated() / 2**30
+
+
+def phase_k3(torch, inputs):
+    """K3 against its plain version and against K2 on K2's inputs."""
+    from local_search_quantization_torch.ops import select_kernels as sk
+
+    luts, Bt, extra, _ = inputs
+    t0, cap = sk.warm_bound(luts, Bt, extra, k=K)
+    err = 0.0
+    for label, t, unsorted in (("sorted cold", None, False),
+                               ("unsorted cold", None, True),
+                               ("sorted warm", t0, False)):
+        got_d, got_i = sk.scan_select(luts, Bt, extra, K, t, unsorted=unsorted)
+        want_d, want_i = sk.scan_select_reference(luts, Bt, extra, K + 1, t)
+        torch.cuda.synchronize()
+        derr = float(torch.nan_to_num((got_d - want_d[:, :K]).abs(), posinf=0.0).max())
+        err = max(err, derr)
+        same_d = torch.equal(got_d, want_d[:, :K])
+        rows = want_d[:, K - 1] < want_d[:, K] if unsorted else torch.ones(
+            K2_QUERIES, dtype=torch.bool, device=luts.device)
+        same_i = torch.equal(got_i[rows], want_i[rows, :K])
+        k2_d, k2_i = sk.fused_scan_topk(luts, Bt, extra, k=K, t0=t, variant="grouped")
+        same_k2 = torch.equal(k2_d, got_d) and (
+            unsorted or torch.equal(k2_i, got_i))
+        print(f"K3 {label}: dists identical {same_d}, ids identical on "
+              f"{int(rows.sum())} rows {same_i}, identical to K2 {same_k2}")
+        check(same_d and same_i and same_k2, f"K3 {label} disagrees")
+    ms ={label: cuda_ms(torch, lambda t=t, u=u: sk.scan_select(
+        luts, Bt, extra, K, t, unsorted=u), 5)
+        for label, t, u in (("sorted", None, False), ("unsorted", None, True),
+                            ("warm", t0, False))}
+    plain = cuda_ms(torch, lambda: sk.scan_select_reference(luts, Bt, extra, K, t0), 2)
+    mem_k3 = peak_gib(torch, lambda: sk.scan_select(luts, Bt, extra, K))
+    mem_k2 = peak_gib(torch, lambda: sk.scan_topk(luts, Bt, extra, K))
+    print(f"[{CARD}] K3 time for {K2_QUERIES} queries x {K2_N} at k={K}: sorted "
+          f"{ms['sorted']:.3f} ms, unsorted {ms['unsorted']:.3f} ms, sorted warm "
+          f"{ms['warm']:.3f} ms (warm bound incl. pre-scan: "
+          f"{cuda_ms(torch, lambda: sk.warm_bound(luts, Bt, extra, k=K), 5):.3f} ms); "
+          f"plain {plain:.3f} ms")
+    print(f"K3 peak device memory {mem_k3:.3f} GiB against K2's {mem_k2:.3f} GiB "
+          "(inputs included)")
+    return (err, ms["sorted"], plain), t0, cap
+
+
+def check_key(torch, label, luts, Bt, extra, t0, cap, k2_out):
+    """K4's appended ids and counts against its plain version, then the key
+    variant (re-rank, sort, certificate) against K2: identical when
+    certified; when not, the exact fallback of `scan_topk_warm` must be.
+    Returns (certified, max |d - K2's d| over the certified output)."""
+    from local_search_quantization_torch.ops import select_kernels as sk
+
+    ids, count = sk.scan_key(luts, Bt, extra, t0, cap)
+    want_ids, want_count = sk.scan_key_reference(luts, Bt, extra, t0, cap)
+    torch.cuda.synchronize()
+    same_count = torch.equal(count, want_count)
+    same_ids = torch.equal(torch.sort(ids, dim=1)[0], torch.sort(want_ids, dim=1)[0])
+    print(f"K4 {label}: cap {cap}, appended per query min/mean/max "
+          f"{int(count.min())}/{float(count.float().mean()):.1f}/{int(count.max())}, "
+          f"counts identical {same_count}, id sets identical {same_ids}")
+    check(same_count and same_ids and bool((count < cap).all()),
+          f"K4 {label}: disagrees with its plain version (or overflowed)")
+    d, i, bad = sk.fused_scan_topk(luts, Bt, extra, k=K, t0=t0, variant="key",
+                                   append_cap=cap)
+    # The certificate's two sides: d[k-1] must sit below T_hi - err.
+    t0k = (sk._f32_to_key(t0) & sk._KEY_MASK) - ((1 << sk._LANE_BITS) - 1)
+    room = sk._key_to_f32(t0k)[:, 0] - d[:, K - 1]
+    err = ((2.0 ** -9 + 2.0 ** -16) * luts.abs().amax(dim=2).sum(dim=1)
+           + 2.0 ** -23 * extra[torch.isfinite(extra)].abs().max())
+    ok = room > err
+    print(f"K4 {label} key variant: certificate bad={bool(bad)}; T_hi - d[k-1] "
+          f"median {float(room.median()):.4g}, error bound median "
+          f"{float(err.median()):.4g}; {int(ok.sum())} of {ok.numel()} queries clear")
+    if bool(bad):
+        d, i = sk.scan_topk_warm(luts, Bt, extra, k=K, variant="key")
+        print(f"K4 {label}: not certified; scan_topk_warm's exact fallback "
+              f"identical to K2 {torch.equal(d, k2_out[0]) and torch.equal(i, k2_out[1])}")
+    same_k2 = torch.equal(d, k2_out[0]) and torch.equal(i, k2_out[1])
+    check(same_k2, f"K4 {label}: the key variant's answer is not K2's")
+    if not bool(bad):
+        print(f"K4 {label} key variant: certified, (d, i) identical to K2 {same_k2}")
+    return not bool(bad), float(torch.nan_to_num((d - k2_out[0]).abs(), posinf=0.0).max())
+
+
+def phase_k4(torch, inputs, t0, cap):
+    """K4 against its plain version, and the key variant against K2: on K2's
+    inputs (the LSQ tables) and on tables with unit-normal entries over the
+    same codes, where the certificate's bf16 bound is small beside the
+    distances' spread."""
+    from local_search_quantization_torch.ops import select_kernels as sk
+
+    luts, Bt, extra, k2_out = inputs
+    _, err = check_key(torch, "LSQ tables", luts, Bt, extra, t0, cap, k2_out)
+    gen = torch.Generator(device=luts.device).manual_seed(17)
+    normal = torch.randn(luts.shape, generator=gen, device=luts.device)
+    zero = torch.zeros_like(extra)
+    normal_k2 = sk.scan_topk(normal, Bt, zero, K)
+    nt0, ncap = sk.warm_bound(normal, Bt, zero, k=K)
+    certified, nerr = check_key(torch, "unit-normal tables", normal, Bt, zero, nt0,
+                                ncap, normal_k2)
+    check(certified, "K4: the key variant's certificate failed on unit-normal tables")
+    err = max(err, nerr)
+    ms = cuda_ms(torch, lambda: sk.scan_key(luts, Bt, extra, t0, cap), 5)
+    full = cuda_ms(torch, lambda: sk.fused_scan_topk(
+        luts, Bt, extra, k=K, t0=t0, variant="key", append_cap=cap), 5)
+    plain = cuda_ms(torch, lambda: sk.scan_key_reference(luts, Bt, extra, t0, cap), 2)
+    print(f"[{CARD}] K4 time for {K2_QUERIES} queries x {K2_N}: kernel {ms:.3f} ms, "
+          f"kernel + re-rank + sort + certificate {full:.3f} ms, plain {plain:.3f} ms")
+    return err, ms, plain
 
 
 def mrf_cost_chunked(torch, X, B, C):
@@ -277,7 +418,7 @@ def drive_path(torch, demo, data, dev, label, mode, init):
     """One main path: train (reusing `init`'s OPQ/ChainQ when given), encode
     the base, quantize norms, query, recall; the launch counters are zeroed
     just before and read just after. Returns (launches, train info, recall)."""
-    from local_search_quantization_torch.ops import icm_kernels, select_kernels
+    from local_search_quantization_torch.ops import select_kernels
     from local_search_quantization_torch.ops.adc import lsq_query_luts
     from local_search_quantization_torch.utils.config import LSQConfig
     from local_search_quantization_torch.utils.synth import random_codes
@@ -293,27 +434,22 @@ def drive_path(torch, demo, data, dev, label, mode, init):
     x_train, x_base, x_query, gt = data
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    icm_kernels.ils_encode_streamed.launches = 0
-    icm_kernels.fused_icm_sweeps.launches.update(v2=0, v1=0)
-    select_kernels.scan_topk.launches = 0
+    zero_counters()
     t0 = time.perf_counter()
     lsq, info = demo.train(args, cfg, x_train, dev, init=init)
     out = demo.run_pipeline_tail(args, lsq, cfg, x_base, x_query, gt, dev)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"ils_encode": icm_kernels.ils_encode_streamed.launches,
-                "scan_topk": select_kernels.scan_topk.launches,
-                "icm_sweeps_v2": icm_kernels.fused_icm_sweeps.launches["v2"],
-                "icm_sweeps_v1": icm_kernels.fused_icm_sweeps.launches["v1"]}
+    launches = read_counters()
     peak = torch.cuda.max_memory_allocated()
     ms = out["milestones"][MAIN["ilsiter_base"]]
     rec = ms["recall"]
     reused = " (reused from path A)" if init is not None else ""
-    print(f"path {label} ({mode}): OPQ {info['opq_s']:.3f} s, error "
+    print(f"[{CARD}] path {label} ({mode}): OPQ {info['opq_s']:.3f} s, error "
           f"{float(info['opq'].obj[-1]):.6e}{reused}; ChainQ {info['chainq_s']:.3f} s, "
           f"error {float(info['chain'].obj[-1]):.6e}{reused}; LSQ {info['lsq_s']:.3f} s, "
           f"error {float(lsq.obj[-1]):.6e}")
-    print(f"path {label} ({mode}): base encode {out['encode_s']:.3f} s "
+    print(f"[{CARD}] path {label} ({mode}): base encode {out['encode_s']:.3f} s "
           f"({out['encode_vec_per_s']:.0f} vec/s, LSQ-{MAIN['ilsiter_base']}), "
           f"norms {ms['norms_s']:.3f} s, query {ms['query_s']:.3f} s "
           f"({ms['qps']:.1f} qps at k={K}), wall {wall:.3f} s")
@@ -353,6 +489,206 @@ def drive_path(torch, demo, data, dev, label, mode, init):
     return launches, info, rec
 
 
+COUNTED = ("ils_encode", "scan_topk", "icm_sweeps_v2", "icm_sweeps_v1", "scan_select",
+           "scan_key")
+
+
+def zero_counters():
+    from local_search_quantization_torch.ops import icm_kernels, select_kernels
+
+    icm_kernels.ils_encode_streamed.launches = 0
+    icm_kernels.fused_icm_sweeps.launches.update(v2=0, v1=0)
+    for name in ("scan_topk", "scan_select", "scan_key"):
+        getattr(select_kernels, name).launches = 0
+
+
+def read_counters() -> dict:
+    from local_search_quantization_torch.ops import icm_kernels, select_kernels
+
+    out = {"ils_encode": icm_kernels.ils_encode_streamed.launches,
+           "icm_sweeps_v2": icm_kernels.fused_icm_sweeps.launches["v2"],
+           "icm_sweeps_v1": icm_kernels.fused_icm_sweeps.launches["v1"]}
+    for name in ("scan_topk", "scan_select", "scan_key"):
+        out[name] = getattr(select_kernels, name).launches
+    return out
+
+
+class Env:
+    """Set environment variables for a block, then restore them."""
+
+    def __init__(self, **values):
+        self.values = values
+
+    def __enter__(self):
+        self.saved = {k: os.environ.get(k) for k in self.values}
+        os.environ.update(self.values)
+
+    def __exit__(self, *exc):
+        for k, v in self.saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def search_route(torch, idx, Q, k, env, method, precision="f32", refine=None):
+    """One route over all queries, run twice; returns the second run's
+    (result, seconds, reruns by certificate). method None is
+    `Index.search`; otherwise `adc.linscan_lsq` on the index's uploaded
+    codes with that topk_method."""
+    from local_search_quantization_torch.ops import adc
+
+    def run():
+        if method is None:
+            return idx.search(Q, k=k, precision=precision, refine=refine)
+        return adc.linscan_lsq(idx.B, Q, idx.model.C, idx._dbn, k=k,
+                               precision=precision, topk_method=method,
+                               device_state=idx._device_scan_state())
+
+    with Env(**env):
+        run()
+        for key in adc.RERUNS:
+            adc.RERUNS[key] = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = run()
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t0, dict(adc.RERUNS)
+
+
+def phase_serving(torch, data, dev):
+    """Path C: Index.build -> save -> load -> search on every route ->
+    refine -> delete, add, compact. Returns its kernel launch counts."""
+    import tempfile
+
+    from local_search_quantization_torch.index import Index
+    from local_search_quantization_torch.ops import adc
+    from local_search_quantization_torch.utils.eval import eval_recall
+
+    x_train, x_base, x_query, gt = data
+    torch.cuda.synchronize()
+    zero_counters()
+    t0 = time.perf_counter()
+    built = Index.build(x_train, x_base, "lsq", m=M, h=H, niter=MAIN["niter"],
+                        ilsiter=MAIN["ilsiter_base"], seed=0, refine="sq8", device=dev)
+    torch.cuda.synchronize()
+    print(f"[{CARD}] path C: Index.build('lsq', m={M}, h={H}, niter={MAIN['niter']}, "
+          f"ilsiter={MAIN['ilsiter_base']}, refine='sq8') of {x_base.shape[0]} rows in "
+          f"{time.perf_counter() - t0:.3f} s, LSQ obj {float(built.model.obj[0]):.6e} -> "
+          f"{float(built.model.obj[-1]):.6e}")
+    with tempfile.TemporaryDirectory() as path:
+        t0 = time.perf_counter()
+        built.save(path)
+        idx = Index.load(path, device=dev)
+        print(f"path C: save + load {time.perf_counter() - t0:.3f} s")
+    same = (np.array_equal(idx.B, built.B) and np.array_equal(idx._dbn, built._dbn)
+            and all(torch.equal(a, b) for a, b in zip(idx.model, built.model)
+                    if isinstance(a, torch.Tensor))
+            and torch.equal(idx.refine.data, built.refine.data))
+    print(f"path C: loaded codes, norms, model and refine store identical: {same}")
+    check(same, "path C: the loaded index differs from the saved one")
+    Q = torch.as_tensor(x_query, device=dev)
+    luts = idx._query_luts(Q)
+    dbn = torch.as_tensor(idx._dbn, device=dev)
+    qscale = luts.abs().amax(dim=2).sum(dim=1) + dbn[torch.isfinite(dbn)].abs().max()
+
+    def report(label, res, s, reruns, k):
+        rec = eval_recall(gt, res.ids.cpu().numpy(), k, verbose=False)
+        print(f"[{CARD}] path C {label:<34} k={k}: {s * 1e3:9.3f} ms, "
+              f"{Q.shape[0] / s:10.1f} qps, recall " + ", ".join(
+                  f"@{n} {rec[n - 1]:.4f}" for n in (1, 10, 100, 1000, 10000) if n <= k)
+              + f"; reruns warm {reruns['warm']}, widen {reruns['widen']}, "
+              f"tournament {reruns['tournament']}")
+        return rec
+
+    routes = [("default (K2)", {}, None),
+              ("sorted (K3 warm)", {"LSQ_TPU_SELECT_VARIANT": "sorted"}, None),
+              ("unsorted (K3 warm + widen)", {"LSQ_TPU_SELECT_VARIANT": "unsorted"}, None),
+              ("key (K4, pre-scan on K3)", {"LSQ_TPU_SELECT_VARIANT": "key"}, None),
+              ("tournament, store", {"LSQ_TPU_TOPK_STORE": "1"}, "tournament"),
+              ("tournament, recompute", {"LSQ_TPU_TOPK_STORE": "0"}, "tournament"),
+              ("exact", {}, "exact")]
+    results = {}
+    for label, env, method in routes:
+        res, s, reruns = search_route(torch, idx, Q, K, env, method)
+        report(label, res, s, reruns, K)
+        results[label] = res
+    base = results["default (K2)"]
+    for label, res in results.items():
+        check(torch.equal(res.ids, base.ids),
+              f"path C: route {label} returns other ids than the default route")
+    # The recompute-mode certificate's slack, the one constant the gate reads.
+    rec_d = results["tournament, recompute"].dists
+    check(bool(((rec_d - base.dists).abs() <= adc.TIE_SLACK * qscale[:, None]).all()),
+          "path C: recompute-mode distances beyond TIE_SLACK")
+    print(f"path C: all {len(routes)} f32 routes return identical ids at k={K}; "
+          f"recompute-mode dists within TIE_SLACK={adc.TIE_SLACK} x summand scale")
+
+    bf16 = {}
+    for label, env, method in (("default (K2)", {}, None),
+                               ("sorted (K3 warm)", {"LSQ_TPU_SELECT_VARIANT": "sorted"}, None),
+                               ("exact", {}, "exact")):
+        res, s, reruns = search_route(torch, idx, Q, K, env, method, precision="bf16")
+        report("bf16 " + label, res, s, reruns, K)
+        bf16[label] = res
+    check(all(torch.equal(r.ids, bf16["default (K2)"].ids) for r in bf16.values()),
+          "path C: bf16 routes disagree")
+    try:
+        with Env(LSQ_TPU_SELECT_VARIANT="key"):
+            idx.search(Q, k=K, precision="bf16")
+        fail("path C: key + bf16 did not raise")
+    except ValueError as e:
+        print(f"path C: bf16 routes identical; key + bf16 raises ValueError ({e})")
+
+    deep = {}
+    for label, env, method in (("default (K2 grouped_unsorted + widen)", {}, None),
+                               ("tournament, store", {}, "tournament"),
+                               ("sorted (K3 warm)", {"LSQ_TPU_SELECT_VARIANT": "sorted"},
+                                None)):
+        res, s, reruns = search_route(torch, idx, Q, 10_000, env, method)
+        report(label, res, s, reruns, 10_000)
+        deep[label] = res
+    first = next(iter(deep.values()))
+    check(all(torch.equal(r.ids, first.ids) for r in deep.values()),
+          "path C: k=10000 routes disagree")
+
+    res, s, reruns = search_route(torch, idx, Q, 100, {}, None, precision="bf16",
+                                  refine=10)
+    rec = report("refine=10 over bf16 (sq8 store)", res, s, reruns, 100)
+    check(rec[0] > 0.9, f"path C: refined recall@1 {rec[0]} too low")
+
+    q0 = Q[:1]
+    gone = idx.search(q0, k=K).ids[0].cpu().numpy()
+    idx.delete(gone)
+    after = idx.search(q0, k=K)
+    back = int(np.isin(after.ids.cpu().numpy(), gone).sum())
+    added = idx.add(x_train[:10_000])
+    probe = torch.as_tensor(x_train[:1000], device=dev)
+    found = idx.search(probe, k=100).ids.cpu().numpy()
+    hit = float(np.mean([i in row for i, row in zip(added[:1000], found)]))
+    ref = idx.search(Q[:100], k=100)
+    old_of_new = idx.compact()
+    comp = idx.search(Q[:100], k=100)
+    remap = torch.as_tensor(old_of_new, device=dev)[comp.ids.long()].int()
+    print(f"path C: deleted {gone.size} ids nearest query 0, {back} came back; added "
+          f"{len(added)} rows (ids {added[0]}..{added[-1]}), {hit:.4f} of 1000 found in "
+          f"their own top-100; compact -> n={idx.n}; search after compact maps back: "
+          f"{torch.equal(remap, ref.ids) and torch.equal(comp.dists, ref.dists)}")
+    check(back == 0 and bool(torch.isfinite(after.dists).all()),
+          "path C: a deleted id came back")
+    check(added == list(range(x_base.shape[0], x_base.shape[0] + 10_000)) and hit >= 0.9,
+          "path C: added rows not found")
+    check(idx.n == x_base.shape[0] + 10_000 - gone.size and torch.equal(remap, ref.ids)
+          and torch.equal(comp.dists, ref.dists), "path C: compact renumbered wrongly")
+    torch.cuda.synchronize()
+    launches = read_counters()
+    print(f"path C: kernel launches {launches}")
+    check(all(launches[n] > 0 for n in ("ils_encode", "scan_topk", "scan_select",
+                                        "scan_key")),
+          f"path C: a kernel of the path never launched: {launches}")
+    return launches
+
+
 def phase_main(torch, demo, data, dev):
     """Path A ("auto": K1 and K2), then path B ("fused": K5 and K2) from
     path A's OPQ/ChainQ models."""
@@ -365,11 +701,7 @@ def phase_main(torch, demo, data, dev):
     check(launches_b["ils_encode"] == 0, f"path B ran K1: {launches_b}")
     print("recall A (auto) vs B (fused): " + ", ".join(
         f"r@{n} {rec_a[n - 1]:.4f} vs {rec_b[n - 1]:.4f}" for n in (1, 10, 100, 1000)))
-    # Each kernel's count from the path that runs it; K6 is on neither path.
-    return {"ils_encode": launches_a["ils_encode"],
-            "scan_topk": launches_a["scan_topk"] + launches_b["scan_topk"],
-            "icm_sweeps_v2": launches_b["icm_sweeps_v2"],
-            "icm_sweeps_v1": launches_a["icm_sweeps_v1"] + launches_b["icm_sweeps_v1"]}
+    return launches_a, launches_b
 
 
 def main() -> int:
@@ -389,8 +721,9 @@ def main() -> int:
 
     import demo_lsq_torch as demo
 
+    global CARD
     dev = torch.device("cuda")
-    card = phase_environment(torch, _build)
+    card = CARD = phase_environment(torch, _build)
     t0 = time.perf_counter()
     data = demo.load_data(demo.parse_args([
         "--dataset", "synthetic", "--ntrain", str(MAIN["ntrain"]),
@@ -400,11 +733,16 @@ def main() -> int:
           f"{time.perf_counter() - t0:.3f} s")
     C, k1 = phase_k1(torch, data, dev)
     sweeps = phase_sweeps(torch, C, data, dev)
-    k2 = phase_k2(torch, C, data, dev)
-    launches = phase_main(torch, demo, data, dev)
+    k2, k2_inputs = phase_k2(torch, C, data, dev)
+    k3, t0, cap = phase_k3(torch, k2_inputs)
+    k4 = phase_k4(torch, k2_inputs, t0, cap)
+    del k2_inputs
+    paths = (*phase_main(torch, demo, data, dev), phase_serving(torch, data, dev))
+    # Each kernel's count summed over the paths that run it (K6 is on none).
+    launches = {name: sum(p[name] for p in paths) for name in COUNTED}
 
     measured = {"ils_encode": k1, "scan_topk": k2, "icm_sweeps_v2": sweeps["v2"],
-                "icm_sweeps_v1": sweeps["v1"]}
+                "icm_sweeps_v1": sweeps["v1"], "scan_select": k3, "scan_key": k4}
     kernels = [{"name": name, "route": "cuda", "source": src, "replaces": site,
                 "launches": launches[name], "max_abs_err": measured[name][0],
                 "ms": measured[name][1], "plain_ms": measured[name][2]}

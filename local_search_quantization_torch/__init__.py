@@ -8,12 +8,16 @@ reference. It keeps that package's module names and data model:
     C : [m, h, d] float32    stacked codebooks
     R : [d, d]  float32      rotation
 
-Functions take tensors and work on the device of their inputs. The two hot
-kernels of the LSQ path are hand-written CUDA for Hopper (`csrc/`), built
-with nvcc at first use (`_build.py`):
+Functions take tensors and work on the device of their inputs; `Index`
+(`index.py`) is the build / save / load / search surface. The kernels are
+hand-written CUDA for Hopper (`csrc/`), built with nvcc at first use
+(`_build.py`):
 
 - K1 `csrc/ils_encode.cu`, the whole-ILS encoder (`ops/icm_kernels.py`);
-- K2 `csrc/scan_topk.cu`, the ADC scan with an exact top-k (`ops/select_kernels.py`).
+- K5/K6 `csrc/icm_sweeps.cu`, the per-round ICM sweeps (`ops/icm_kernels.py`);
+- K2 `csrc/scan_topk.cu`, the ADC scan with an exact top-k;
+- K3 `csrc/scan_select.cu`, the same top-k streamed below a warm bound;
+- K4 `csrc/scan_key.cu`, the bf16 key-append scan (K2-K4: `ops/select_kernels.py`).
 
 Each has a plain PyTorch version beside it, which CPU tensors use. This
 package never imports JAX.

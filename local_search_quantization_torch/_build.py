@@ -43,7 +43,7 @@ def _nvcc() -> str:
 
 
 # Every kernel source in csrc/, by name.
-KERNELS = ("ils_encode", "scan_topk", "icm_sweeps")
+KERNELS = ("ils_encode", "scan_topk", "icm_sweeps", "scan_select", "scan_key")
 
 
 def _paths(name: str) -> tuple[str, str]:

@@ -77,3 +77,13 @@ def load_model(path: str, device="cpu"):
         if name not in _registry():
             raise ValueError(f"unknown or unported model type {name!r} in {path}")
         return model_from_numpy(name, {f: data[f] for f in data.files}, device)
+
+
+def save_codes(path: str, B, extra: dict | None = None) -> None:
+    """Save base-set codes (+ norm codes, tombstones etc.) as numpy arrays."""
+    np.savez_compressed(path, B=np.asarray(B), **(extra or {}))
+
+
+def load_codes(path: str) -> dict:
+    with np.load(path, allow_pickle=False) as data:
+        return dict(data)

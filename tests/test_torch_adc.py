@@ -68,10 +68,12 @@ def test_k2_plain_matches_pallas_grouped_kernel_with_ties(n, k, n_inf):
 
 
 @pytest.mark.parametrize("h", [16, 300])
-def test_run_scan_routes_match_jax_exact_merge(h):
-    """The port's "exact" route and its "auto" route (K2's wrapper, which
-    runs the plain version for CPU tensors) against the JAX `_run_scan`'s exact
-    streaming merge. h=300 takes the int32 code layout."""
+def test_run_scan_routes_match_jax_exact_merge(h, monkeypatch):
+    """Every route of the port's `_run_scan` on CPU tensors (the kernels'
+    plain versions) against the JAX `_run_scan`'s exact streaming merge: the
+    tournament with its tie certificate, the kernel route under each select
+    variant, the exact merge, approx (exact here) and auto. h=300 takes the
+    int32 code layout."""
     n, nq, m, k = 1500, 10, 3, 40
     luts, B, extra = _integer_case(n, nq, m, h, seed=h)
     # Each "query" is its own row index into the fixed integer LUTs.
@@ -80,15 +82,21 @@ def test_run_scan_routes_match_jax_exact_merge(h):
                           k=k, extra=extra, query_chunk=8, base_block=512,
                           topk_method="exact")
     np.testing.assert_array_equal(np.asarray(jres.ids), _lex_oracle(luts, B, extra, k)[1])
-    for method in ("exact", "auto"):
+    routes = [("exact", None), ("auto", None), ("approx", None), ("tournament", None),
+              ("twopass", None)]
+    routes += [("kernel", v) for v in ("grouped", "grouped_unsorted", "sorted",
+                                       "unsorted", "key")]
+    for method, variant in routes:
+        if variant is None:
+            monkeypatch.delenv("LSQ_TPU_SELECT_VARIANT", raising=False)
+        else:
+            monkeypatch.setenv("LSQ_TPU_SELECT_VARIANT", variant)
         tres = tadc._run_scan(lambda q: _t(luts)[q[:, 0].long()], _t(Q), _t(B), k=k,
                               extra=_t(extra),
                               query_chunk=4, base_block=256, topk_method=method)
         np.testing.assert_array_equal(tres.ids.numpy(), np.asarray(jres.ids))
         np.testing.assert_array_equal(tres.dists.numpy(), np.asarray(jres.dists))
         assert tres.ids.dtype == torch.int32
-    with pytest.raises(NotImplementedError):
-        tadc._run_scan(lambda q: _t(luts), _t(Q), _t(B), k=k, topk_method="tournament")
 
 
 def test_linscan_lsq_matches_jax_on_integer_queries():

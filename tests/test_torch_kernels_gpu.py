@@ -21,8 +21,17 @@ from local_search_quantization_torch.ops.icm_kernels import (
     ils_kernel_fits,
 )
 from local_search_quantization_torch.ops.select_kernels import (
+    _k3_smem_bytes,
+    fused_scan_topk,
+    scan_key,
+    scan_key_reference,
+    scan_select,
+    scan_select_reference,
     scan_topk,
+    scan_topk_fits,
     scan_topk_reference,
+    select_cap,
+    select_kernel_fits,
 )
 
 pytestmark = pytest.mark.gpu
@@ -210,3 +219,154 @@ def test_icm_sweeps_wrapper_rejects_bad_inputs(cuda):
                          icmiter=1)  # not contiguous
     with pytest.raises(ValueError):
         fused_icm_sweeps(B, u, b, order, icmiter=1, variant="v3")
+
+
+def _kth_t0(lut, Bt, extra, rank):
+    """Each query's rank-th smallest distance (1-based) as a [nq, 1] bound."""
+    d, _ = scan_select_reference(lut, Bt, extra, rank)
+    return d[:, rank - 1:rank].contiguous()
+
+
+@pytest.mark.parametrize("n,nq,m,h,k,n_inf,warm", [
+    (200_000, 9, 7, 256, 100, 0, False),     # tie-heavy integer distances
+    (200_000, 9, 7, 256, 1000, 0, True),     # the warm bound, ties at t0
+    (5000, 5, 7, 256, 300, 4800, False),     # fewer finite rows than k
+    (70_000, 3, 4, 16, 1000, 0, False),      # small h: huge tie blocks
+    (300_000, 4, 7, 256, 10_000, 1000, True),  # the deep-k buffer
+    (3000, 2, 3, 300, 500, 0, False),        # int32 codes only (h > 256)
+])
+def test_k3_kernel_matches_plain_version(cuda, n, nq, m, h, k, n_inf, warm):
+    """K3 against its plain version: "sorted" identical, and identical to K2
+    cut at t0; "unsorted" value-exact, ids identical where the k-th value is
+    not tied with the next."""
+    lut, Bt, extra = _k2_inputs(cuda, n, nq, m, h, seed=n + k, n_inf=n_inf)
+    t0 = _kth_t0(lut, Bt, extra, min(n, k + k // 2 + 7)) if warm else None
+    want_d, want_i = scan_select_reference(lut, Bt, extra, min(n, k + 1), t0)
+    kk = min(k, n)
+    layouts = (torch.int32,) if h > 256 else (torch.uint8, torch.int32)
+    for dtype in layouts:
+        Bc = Bt.to(dtype).contiguous()
+        before = scan_select.launches
+        d, i = scan_select(lut, Bc, extra, k, t0)
+        assert scan_select.launches == before + 1
+        torch.testing.assert_close(d, want_d[:, :kk], rtol=0, atol=0)
+        torch.testing.assert_close(i, want_i[:, :kk], rtol=0, atol=0)
+        k2_d, k2_i = fused_scan_topk(lut, Bc, extra, k=k, t0=t0, variant="grouped")
+        assert torch.equal(k2_d, d) and torch.equal(k2_i, i)
+        ud, ui = scan_select(lut, Bc, extra, k, t0, unsorted=True)
+        torch.testing.assert_close(ud, want_d[:, :kk], rtol=0, atol=0)
+        if kk < want_d.shape[1]:
+            cert = want_d[:, kk - 1] < want_d[:, kk]
+            assert torch.equal(ui[cert], want_i[cert, :kk])
+
+
+def test_k3_continuous_distances_warm_and_strided_sample(cuda):
+    rng = np.random.default_rng(5)
+    lut = torch.as_tensor(rng.normal(size=(33, 7, 256)).astype(np.float32), device=cuda)
+    Bt = torch.as_tensor(rng.integers(0, 256, (7, 400_000)).astype(np.uint8), device=cuda)
+    extra = torch.as_tensor(rng.random(400_000).astype(np.float32), device=cuda)
+    Bs, es = Bt[:, ::16].contiguous(), extra[::16].contiguous()
+    t0 = scan_select(lut, Bs, es, 111)[0][:, 110:111].contiguous()
+    for unsorted in (False, True):
+        got = scan_select(lut, Bt, extra, 1000, t0, unsorted=unsorted)
+        want = scan_select_reference(lut, Bt, extra, 1000, t0)
+        torch.testing.assert_close(got[0], want[0], rtol=0, atol=0)
+        torch.testing.assert_close(got[1], want[1], rtol=0, atol=0)
+
+
+def _hits(lut, Bt, extra, t0):
+    """Every K4 hit of each query, ascending ids (a cap no row can fill)."""
+    ids, count = scan_key_reference(lut, Bt, extra, t0, Bt.shape[1])
+    return ids, count
+
+
+@pytest.mark.parametrize("n,nq,m,h,rank,cap", [
+    (200_000, 9, 7, 256, 1400, 2560),   # integer ties at t0; no overflow
+    (70_000, 5, 4, 16, 800, 1024),      # small h: giant tie blocks
+    (100_000, 3, 7, 256, 3000, 1024),   # overflow: count >= cap
+    (3000, 2, 3, 300, 200, 512),        # int32 codes only (h > 256)
+])
+def test_k4_kernel_matches_plain_version(cuda, n, nq, m, h, rank, cap):
+    lut, Bt, extra = _k2_inputs(cuda, n, nq, m, h, seed=n + rank, n_inf=n // 50)
+    t0 = _kth_t0(lut, Bt, extra, rank)
+    all_ids, all_count = _hits(lut, Bt, extra, t0)
+    want_ids, want_count = scan_key_reference(lut, Bt, extra, t0, cap)
+    layouts = (torch.int32,) if h > 256 else (torch.uint8, torch.int32)
+    for dtype in layouts:
+        before = scan_key.launches
+        ids, count = scan_key(lut, Bt.to(dtype).contiguous(), extra, t0, cap)
+        assert scan_key.launches == before + 1
+        assert torch.equal(count, want_count) and torch.equal(count, all_count)
+        filled = torch.clamp(count, max=cap)
+        for q in range(nq):
+            got = torch.sort(ids[q, :filled[q]])[0]
+            assert (ids[q, filled[q]:] == -1).all()
+            if count[q] <= cap:
+                assert torch.equal(got, want_ids[q, :filled[q]])
+            else:  # overflow: cap distinct hits, in no fixed order
+                assert torch.isin(got, all_ids[q, :count[q]]).all()
+                assert torch.unique(got).numel() == cap
+    # The whole key variant (re-rank, sort, certificate) on the card against
+    # the same call on CPU copies, which runs the plain version.
+    got = fused_scan_topk(lut, Bt, extra, k=rank // 2, t0=t0, variant="key",
+                          append_cap=cap)
+    want = fused_scan_topk(lut.cpu(), Bt.cpu(), extra.cpu(), k=rank // 2,
+                           t0=t0.cpu(), variant="key", append_cap=cap)
+    assert bool(got[2]) == bool(want[2])
+    if not bool((want_count >= cap).any()):
+        torch.testing.assert_close(got[0].cpu(), want[0], rtol=0, atol=0)
+        torch.testing.assert_close(got[1].cpu(), want[1], rtol=0, atol=0)
+    if not bool(want[2]):  # certified: the exact top-k, K2's answer
+        exact = scan_select_reference(lut, Bt, extra, rank // 2)
+        assert torch.equal(got[0], exact[0]) and torch.equal(got[1], exact[1])
+
+
+def test_k4_t0_inf_appends_every_finite_row_and_flags_overflow(cuda):
+    lut, Bt, extra = _k2_inputs(cuda, 20_000, 3, 7, 256, seed=8, n_inf=500)
+    t0 = torch.full((3, 1), float("inf"), device=cuda)
+    ids, count = scan_key(lut, Bt, extra, t0, 1024)
+    assert (count == 19_500).all()
+    _, _, bad = fused_scan_topk(lut, Bt, extra, k=100, t0=t0, variant="key",
+                                append_cap=1024)
+    assert bool(bad)
+
+
+def test_select_kernel_fits_mirrors_the_library(cuda):
+    """The pure K3 and K2 shape rules agree with the libraries' own size
+    functions."""
+    import ctypes
+
+    k2 = _build.load("scan_topk")
+    k2.lsq_scan_smem_bytes.argtypes = [ctypes.c_int] * 2
+    for m in (1, 7, 8, 16):
+        for h in (16, 256, 1024, 2048):
+            assert scan_topk_fits(m, h) == (k2.lsq_scan_smem_bytes(m, h) <= 227 * 1024)
+    lib = _build.load("scan_select")
+    lib.lsq_select_smem_bytes.argtypes = [ctypes.c_int] * 3
+    assert lib.lsq_select_tile() == 2048
+    for m in (1, 4, 7, 8, 16):
+        for h in (16, 256, 300, 1024):
+            for k in (1, 100, 1000, 5000, 10_000, 12_000, 14_000):
+                cap = select_cap(k)
+                assert _k3_smem_bytes(m, h, cap) == lib.lsq_select_smem_bytes(m, h, cap)
+                lib_fits = lib.lsq_select_smem_bytes(m, h, cap) <= lib.lsq_select_smem_limit()
+                assert select_kernel_fits(k, m, h) == lib_fits, (m, h, k)
+
+
+def test_select_wrappers_reject_bad_inputs(cuda):
+    lut, Bt, extra = _k2_inputs(cuda, 1000, 2, 3, 16, seed=1)
+    t0 = torch.zeros((2, 1), device=cuda)
+    with pytest.raises(ValueError):
+        scan_select(lut.double(), Bt, extra, 5)
+    with pytest.raises(ValueError):
+        scan_select(lut, Bt, extra, 5, t0[:1])  # t0 not [nq, 1]
+    with pytest.raises(ValueError):
+        scan_select(lut, Bt.long(), extra, 5)
+    big = torch.zeros((1, 7, 1024), device=cuda)
+    with pytest.raises(ValueError, match="select_kernel_fits"):
+        scan_select(big, torch.zeros((7, 50_000), dtype=torch.int32, device=cuda),
+                    None, 20_000)
+    with pytest.raises(ValueError):
+        scan_key(lut, Bt, extra, t0.double(), 128)
+    with pytest.raises(ValueError):
+        scan_key(lut, Bt, extra, t0, 0)

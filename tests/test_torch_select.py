@@ -1,0 +1,226 @@
+"""The port's select API and the plain versions of K3 and K4, held to the JAX package.
+
+`select_kernels.fused_scan_topk` and `scan_topk_warm` on CPU tensors run the
+plain versions of the kernels (K2 `scan_select_reference` with no bound, K3
+`scan_select_reference` with t0, K4 `scan_key_reference`). They are held to
+`select_pallas.fused_scan_topk` / `scan_topk_warm` run in interpret mode on
+the same numpy inputs. Integer LUTs make the TPU kernels' bf16 hi/lo sums
+exact and make distance ties common, so the tolerance is exact equality;
+"unsorted" flavours are held on ids only where the k-th value is not tied
+with the next (their boundary ties follow arrival order by contract).
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from local_search_quantization_tpu.ops import select_pallas as sp
+from local_search_quantization_torch.ops import select_kernels as sk
+
+torch.set_num_threads(2)
+
+NQ, M, H, N = 8, 4, 16, 4096
+
+
+def _t(a):
+    return torch.as_tensor(np.array(a))
+
+
+def _case(n=N, n_inf=0, seed=0):
+    rng = np.random.default_rng(seed)
+    luts = rng.integers(-4, 5, size=(NQ, M, H)).astype(np.float32)
+    B = rng.integers(0, H, size=(n, M), dtype=np.int32)
+    extra = rng.integers(0, 3, size=n).astype(np.float32)
+    if n_inf:
+        extra[rng.choice(n, n_inf, replace=False)] = np.inf
+    full = luts[:, np.arange(M)[:, None], B.T].sum(1) + extra[None, :]
+    return luts, B, extra, np.sort(full, axis=1)
+
+
+def _jax(luts, B, extra, **kw):
+    t0 = kw.pop("t0", None)
+    return sp.fused_scan_topk(jnp.asarray(luts), jnp.asarray(B.T), jnp.asarray(extra),
+                              tb=1024, interpret=True,
+                              t0=None if t0 is None else jnp.asarray(t0), **kw)
+
+
+def _port(luts, B, extra, **kw):
+    t0 = kw.pop("t0", None)
+    return sk.fused_scan_topk(_t(luts), _t(B.T.astype(np.uint8)), _t(extra),
+                              t0=None if t0 is None else _t(t0), **kw)
+
+
+def _assert_same(jd, ji, td, ti, unsorted, sorted_full):
+    """Dists identical; ids identical, or for the unsorted flavours on rows
+    whose k-th value is below the (k+1)-th (from the oracle `sorted_full`)."""
+    jd, ji = np.asarray(jd), np.asarray(ji)
+    np.testing.assert_array_equal(td.numpy(), jd)
+    if not unsorted:
+        np.testing.assert_array_equal(ti.numpy(), ji)
+        return
+    k = jd.shape[1]
+    cert = sorted_full[:, k - 1] < sorted_full[:, k]
+    np.testing.assert_array_equal(ti.numpy()[cert], ji[cert])
+
+
+@pytest.mark.parametrize("variant", ["sorted", "unsorted"])
+@pytest.mark.parametrize("case", [
+    # (n_inf, k, t0 rank or None)
+    (0, 64, None),
+    (0, 64, 192),      # warm bound above the k-th value
+    (300, 64, 40),     # fewer rows below t0 than k: sentinels
+    (4000, 150, None),  # fewer finite rows than k
+])
+def test_k3_plain_matches_pallas_select_kernel(variant, case):
+    n_inf, k, rank = case
+    luts, B, extra, full = _case(n_inf=n_inf, seed=k + n_inf)
+    t0 = None if rank is None else full[:, rank - 1:rank].copy()
+    jd, ji = _jax(luts, B, extra, k=k, variant=variant, t0=t0)
+    td, ti = _port(luts, B, extra, k=k, variant=variant, t0=t0)
+    _assert_same(jd, ji, td, ti, variant == "unsorted", full)
+    assert (full[:, 1:] == full[:, :-1]).any()  # ties are present
+    if rank is not None:  # only rows below t0 are kept
+        assert np.all(np.isinf(td.numpy()) | (td.numpy() < t0))
+    if n_inf and N - n_inf < k:
+        assert (ti.numpy()[:, N - n_inf:] == -1).all()
+
+
+def test_k3_sorted_equals_k2_cut_at_t0():
+    """K3 "sorted" is K2's answer cut at t0, id for id."""
+    luts, B, extra, full = _case(n_inf=100, seed=3)
+    t0 = full[:, 99:100].copy()
+    k3 = _port(luts, B, extra, k=80, variant="sorted", t0=t0)
+    k2 = _port(luts, B, extra, k=80, variant="grouped", t0=t0)
+    assert torch.equal(k3[0], k2[0]) and torch.equal(k3[1], k2[1])
+
+
+@pytest.mark.parametrize("cap,overflow", [(1024, False), (128, True)])
+def test_k4_plain_matches_pallas_key_kernel(cap, overflow):
+    """(d, i, bad) identical; an overflowing append buffer flags bad in both."""
+    luts, B, extra, full = _case(n_inf=300, seed=11)
+    t0 = full[:, 191:192].copy()
+    jd, ji, jbad = _jax(luts, B, extra, k=64, variant="key", t0=t0, append_cap=cap)
+    td, ti, tbad = _port(luts, B, extra, k=64, variant="key", t0=t0, append_cap=cap)
+    assert bool(jbad) == bool(tbad) == overflow
+    if not overflow:
+        np.testing.assert_array_equal(td.numpy(), np.asarray(jd))
+        np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
+
+
+def test_k4_plain_version_appends_in_id_order_and_counts_every_hit():
+    luts, B, extra, full = _case(n_inf=50, seed=5)
+    t0 = full[:, 300:301].copy()
+    ids, count = sk.scan_key_reference(_t(luts), _t(B.T), _t(extra), _t(t0), 128)
+    d = luts[:, np.arange(M)[:, None], B.T].sum(1) + extra[None, :]  # exact in bf16
+    hits = d < t0
+    np.testing.assert_array_equal(count.numpy(), hits.sum(1))
+    for q in range(NQ):
+        want = np.flatnonzero(hits[q])[:128]
+        np.testing.assert_array_equal(ids.numpy()[q, :len(want)], want)
+        assert (ids.numpy()[q, len(want):] == -1).all()
+    # t0 = +inf appends every finite row; -0.0 keys as 0.
+    inf = np.full((NQ, 1), np.inf, np.float32)
+    _, count = sk.scan_key_reference(_t(luts), _t(B.T), _t(extra), _t(inf), 8)
+    assert (count.numpy() == N - 50).all()
+    keys = sk._f32_to_key(torch.tensor([-0.0, 0.0, -1.5, 2.0]))
+    assert keys[0] == keys[1] == 0 and keys[2] < 0 < keys[3]
+    back = sk._key_to_f32(sk._f32_to_key(torch.tensor([-3.25, 7.5, -1e30])))
+    assert torch.equal(back, torch.tensor([-3.25, 7.5, -1e30]))
+
+
+@pytest.mark.parametrize("variant", ["sorted", "unsorted", "key", "grouped",
+                                     "grouped_unsorted"])
+def test_scan_topk_warm_matches_jax(variant):
+    """Warm start with a sound sample rank: the same (d, i) as the JAX
+    package's deferred warm path, and the same certificate."""
+    luts, B, extra, full = _case(n_inf=300, seed=21)
+    kw = dict(k=64, sample_stride=4, min_n=0, min_k=0, deferred=True, variant=variant)
+    jd, ji, jbad = sp.scan_topk_warm(jnp.asarray(luts), jnp.asarray(B.T),
+                                     jnp.asarray(extra), tb=1024, interpret=True, **kw)
+    td, ti, tbad = sk.scan_topk_warm(_t(luts), _t(B.T.astype(np.uint8)), _t(extra), **kw)
+    _assert_same(jd, ji, td, ti, variant in ("unsorted", "grouped_unsorted"), full)
+    if variant.startswith("grouped"):
+        assert tbad is None  # K2 needs no warm bound: it runs cold
+    else:
+        assert bool(tbad) == bool(jbad) is False
+
+
+@pytest.mark.parametrize("variant", ["sorted", "key"])
+def test_scan_topk_warm_undercapture_reruns_cold(variant):
+    """sample_rank=1 under-captures: both packages flag it, and the
+    non-deferred form reruns cold to the exact answer."""
+    luts, B, extra, full = _case(seed=22)
+    kw = dict(k=64, sample_stride=4, min_n=0, min_k=0, sample_rank=1, variant=variant)
+    _, _, jbad = sp.scan_topk_warm(jnp.asarray(luts), jnp.asarray(B.T), jnp.asarray(extra),
+                                   tb=1024, interpret=True, deferred=True, **kw)
+    _, _, tbad = sk.scan_topk_warm(_t(luts), _t(B.T), _t(extra), deferred=True, **kw)
+    assert bool(jbad) and bool(tbad)
+    jd, ji = sp.scan_topk_warm(jnp.asarray(luts), jnp.asarray(B.T), jnp.asarray(extra),
+                               tb=1024, interpret=True, **kw)
+    td, ti = sk.scan_topk_warm(_t(luts), _t(B.T), _t(extra), **kw)
+    np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
+    np.testing.assert_array_equal(td.numpy(), np.asarray(jd))
+    np.testing.assert_array_equal(td.numpy(), full[:, :64])
+
+
+@pytest.mark.parametrize("variant", ["sorted", "unsorted"])
+def test_bf16_precision_rounds_once_and_rejects_the_key_variant(variant):
+    """Continuous LUTs, rounded once to bf16: every row is certified, so the
+    unsorted flavour is held id for id too."""
+    rng = np.random.default_rng(3)
+    luts = rng.normal(size=(NQ, M, H)).astype(np.float32) * 7
+    B = rng.integers(0, H, size=(2048, M), dtype=np.int32)
+    extra = rng.random(2048).astype(np.float32)
+    jd, ji = _jax(luts, B, extra, k=50, variant=variant, precision="bf16")
+    td, ti = _port(luts, B, extra, k=50, variant=variant, precision="bf16")
+    np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
+    np.testing.assert_array_equal(td.numpy(), np.asarray(jd))
+    t0 = np.full((NQ, 1), 1e9, np.float32)
+    with pytest.raises(ValueError, match="hi-only"):
+        _port(luts, B, extra, k=50, variant="key", t0=t0, precision="bf16")
+    with pytest.raises(ValueError, match="hi-only"):
+        sk.scan_topk_warm(_t(luts), _t(B.T), _t(extra), k=50, variant="key",
+                          precision="bf16")
+    with pytest.raises(ValueError, match="warm threshold"):
+        _port(luts, B, extra, k=50, variant="key")
+
+
+def test_select_variant_rule_and_override(monkeypatch):
+    monkeypatch.delenv("LSQ_TPU_SELECT_VARIANT", raising=False)
+    assert sk.select_variant(2048) == "grouped"
+    assert sk.select_variant(2049) == "grouped_unsorted"
+    for k in (100, 2048, 10_000):
+        assert sk.select_variant(k) == sp.select_geometry(k)[0]
+    monkeypatch.setenv("LSQ_TPU_SELECT_VARIANT", "key")
+    assert sk.select_variant(10) == "key" == sp.select_geometry(10)[0]
+    monkeypatch.setenv("LSQ_TPU_SELECT_VARIANT", "bogus")
+    with pytest.raises(ValueError):
+        sk.select_variant(10)
+
+
+def test_select_kernel_fits_and_caps():
+    assert sk.select_cap(1) == 128 and sk.select_cap(1000) == 1024
+    assert sk.select_cap(10_000) == 10_112
+    # K3's buffer at m=7, h=256: 7 KB of LUT + 8 bytes x (2 cap + one tile).
+    assert sk._k3_smem_bytes(7, 256, 1024) == 7168 + 8 * (2048 + 2048)
+    assert sk.select_kernel_fits(10_000, 7, 256)
+    assert not sk.select_kernel_fits(14_000, 7, 256)
+    assert not sk.select_kernel_fits(1000, 16, 4096)
+    assert sk.kernel_holds("grouped", 10 ** 6, 7, 256)
+    assert not sk.kernel_holds("sorted", 14_000, 7, 256)
+    assert not sk.kernel_holds("grouped", 10, 16, 1024)
+
+
+def test_wrappers_take_the_plain_version_on_the_cpu_only():
+    luts, B, extra, full = _case(seed=4)
+    before = (sk.scan_select.launches, sk.scan_key.launches)
+    d, i = sk.scan_select(_t(luts), _t(B.T), _t(extra), 20, unsorted=True)
+    np.testing.assert_array_equal(d.numpy(), full[:, :20])
+    sk.scan_key(_t(luts), _t(B.T), _t(extra), _t(full[:, 30:31]), 64)
+    assert (sk.scan_select.launches, sk.scan_key.launches) == before
+    with pytest.raises(ValueError, match="unsupported device"):
+        sk.scan_select(_t(luts).to("meta"), _t(B.T).to("meta"), None, 20)
+    with pytest.raises(ValueError, match="unsupported device"):
+        sk.scan_key(_t(luts).to("meta"), _t(B.T).to("meta"), None,
+                    torch.zeros((NQ, 1), device="meta"), 64)
