@@ -18,6 +18,19 @@ nothing of JAX. Phases:
    against their plain versions on the same codes: an integer fixture
    (n=8192) and the SIFT width (n=131072, icmiter=4, trained codebooks).
    Codes must be identical;
+2c. K7 (K5's visit dissected: variants "full", "predwrite", "nowrite",
+   "noargmin", "mmonly") against its plain version, at the integer fixture
+   and at the SIFT width of phase 2b: codes identical, the per-row sink
+   identical for "nowrite" and within 1e-5 for the score sums, "full"
+   identical to K5; each variant's time on a table stacked once, beside
+   K5's and K6's wrappers in the same phase; the SASS's bf16 table loads
+   a table row per variant and how many of them the schedule serializes
+   (cuobjdump), where "mmonly" must keep all its loads;
+2d. the L2 gather probe (`csrc/l2_probe.cu`): its sums against its plain
+   version, then the rate at which L2 serves random 512 B bf16 rows of a
+   6.4 MB table (K5, K6) and 1 KB f32 rows of a 12.8 MB table (K1), one
+   element and 16 bytes a lane, and the practical bound in ms it gives K1,
+   K5 and K6 (their gathered bytes over the better of the two rates);
 3. K2 (the ADC scan + exact top-k) against its plain version over a
    1M-row base, 1000 queries at k=1000 (the main path's query shape): ids
    and dists identical, for uint8 and int32 code layouts. Then, at nq = 1,
@@ -60,6 +73,10 @@ nothing of JAX. Phases:
    the path's kernels must be > 0 after it; the accept invariant, the
    recall curve and a plain-version check of the query results must hold.
    Path C's f32 routes must return identical ids, and its bf16 routes too.
+4d. path D, the encoder benchmark path: the bench twins' functions at full
+   size (`benchmarks.bench_kernel_variants`, `benchmarks.bench` and
+   `benchmarks.bench_icm_phases` of `local_search_quantization_torch`);
+   K7 must launch in every variant, and K1 and K5 must launch.
 
 Prints the kernels' JSON line and then, last, the device line. Any failed
 check exits non-zero before those lines are printed. Every time is printed
@@ -97,6 +114,8 @@ KERNELS = {
                     "local_search_quantization_tpu/ops/select_pallas.py:123"),
     "scan_key": ("local_search_quantization_torch/csrc/scan_key.cu",
                  "local_search_quantization_tpu/ops/select_pallas.py:488"),
+    "icm_sweeps_dissect": ("local_search_quantization_torch/csrc/icm_sweeps.cu",
+                           "benchmarks/bench_kernel_variants.py:50"),
 }
 K2_N, K2_QUERIES, K = 1_000_000, 1000, 1000
 # The card's name and power limit (nvidia-smi), printed beside every time.
@@ -173,9 +192,12 @@ def phase_environment(torch, _build):
     for name in _build.KERNELS:
         info = _build.BUILD_INFO[name]
         print(f"build {name}: {info['seconds']:.2f} s (cached={info['cached']})")
+        func = "?"
         for line in info["log"].splitlines():
-            if "registers" in line or "spill" in line or "smem" in line:
-                print(f"  ptxas: {line.strip()}")
+            if "Compiling entry function" in line or "Function properties for" in line:
+                func = line.split("'")[1] if "'" in line else line.split()[-1]
+            elif "registers" in line or "spill" in line or "smem" in line:
+                print(f"  ptxas {func}: {line.strip()}")
     return card
 
 
@@ -292,6 +314,201 @@ def phase_sweeps(torch, C, data, dev):
     X = torch.as_tensor(data[1][:K1_N], device=dev)
     B0 = torch.as_tensor(random_codes(14, K1_N, M, H), device=dev)
     return compare_sweeps(torch, sweeps_args(torch, X, C, B0, 15), "SIFT width", True)
+
+
+# K7's score sums (the "mmonly" and "noargmin" sinks): within 1e-5 of the
+# plain version, relative, plus 1e-5 of its mean magnitude (both add in the
+# same lane order, so they are expected to agree bit for bit).
+SINK_RTOL = 1e-5
+
+
+def compare_k7(torch, args, label, time_it):
+    """K7's variants against the plain version, and "full" against K5, on
+    the same codes; with time_it, each variant's time on a table stacked
+    once, K5's and K6's wrappers beside them. Returns (max error, full ms,
+    plain full ms)."""
+    from local_search_quantization_torch.ops import icm_kernels as ik
+
+    B, u, b16, order = args
+    stacked = ik.binaries_to_j_stacked(b16).contiguous()
+    k5 = ik.fused_icm_sweeps(*args, icmiter=ICMITER, variant="v2")
+    err = 0.0
+    for variant in ik.DISSECT_VARIANTS:
+        kw = dict(icmiter=ICMITER, variant=variant)
+        codes, sink = ik.icm_sweeps_dissect(B, u, stacked, order, **kw)
+        want_codes, want_sink = ik.icm_sweeps_dissect_reference(B, u, b16, order, **kw)
+        torch.cuda.synchronize()
+        rows = int((codes != want_codes).any(1).sum())
+        serr = float((sink - want_sink).abs().max())
+        tol = SINK_RTOL * (want_sink.abs() + float(want_sink.abs().mean()))
+        sums = variant in ("noargmin", "mmonly")
+        sink_ok = bool(((sink - want_sink).abs() <= tol).all()) if sums \
+            else torch.equal(sink, want_sink)
+        same_k5 = variant != "full" or torch.equal(codes, k5)
+        err = max(err, serr, float((codes - want_codes).abs().max()))
+        print(f"K7 {variant} {label}: n={B.shape[0]}, rows with other codes {rows}, "
+              f"max |sink diff| {serr} ({'within 1e-5' if sums else 'identical'}: "
+              f"{sink_ok}){', identical to K5: ' + str(same_k5) if variant == 'full' else ''}")
+        check(rows == 0 and sink_ok and same_k5,
+              f"K7 {variant} {label}: kernel and plain version (or K5) disagree")
+    if not time_it:
+        return err, None, None
+    ms = {v: cuda_ms(torch, lambda v=v: ik.icm_sweeps_dissect(
+        B, u, stacked, order, icmiter=ICMITER, variant=v), 5) for v in ik.DISSECT_VARIANTS}
+    ms["K5 wrapper"] = cuda_ms(torch, lambda: ik.fused_icm_sweeps(
+        *args, icmiter=ICMITER, variant="v2"), 5)
+    ms["K6 wrapper"] = cuda_ms(torch, lambda: ik.fused_icm_sweeps(
+        *args, icmiter=ICMITER, variant="v1"), 5)
+    ms["stack"] = cuda_ms(torch, lambda: ik.binaries_to_j_stacked(b16).contiguous(), 5)
+    plain = cuda_ms(torch, lambda: ik.icm_sweeps_dissect_reference(
+        B, u, b16, order, icmiter=ICMITER, variant="full"), 1)
+    n = B.shape[0]
+    print(f"[{CARD}] K7 {label} time, {ICMITER} sweeps, table stacked once: " + ", ".join(
+        f"{v} {ms[v]:.3f} ms ({ms[v] * 1e6 / (n * ICMITER * M):.4f} ns per row-visit)"
+        for v in ik.DISSECT_VARIANTS))
+    print(f"[{CARD}] K7 {label} beside: K5 wrapper (stacks the table each call) "
+          f"{ms['K5 wrapper']:.3f} ms, K6 wrapper {ms['K6 wrapper']:.3f} ms, the stacking "
+          f"alone {ms['stack']:.3f} ms; plain full {plain:.3f} ms")
+    return err, ms["full"], plain
+
+
+def k7_sass() -> dict:
+    """What the SASS of the 8-candidates-a-lane instantiations issues for one
+    table row, read with cuobjdump from the built library: {(layout, switch):
+    (bf16 table loads, serialized loads)}, layout 2 for K5's table and 1 for
+    K6's, switch 0 for K5/K6 and 1-5 for K7's variants. A load is serialized
+    when its register is read before the next table load issues, so the next
+    one waits a whole L2 round trip. Fails where cuobjdump is missing: it
+    ships with nvcc, which the build needs."""
+    import re
+    import shutil
+
+    from local_search_quantization_torch import _build
+
+    tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    if not os.path.exists(tool):
+        tool = shutil.which("cuobjdump")
+    check(tool is not None, "cuobjdump not found beside nvcc or on PATH: K7's SASS "
+          "table loads cannot be read")
+    sass = subprocess.run([tool, "-sass", _build._paths("icm_sweeps")[1]],
+                          capture_output=True, text=True, timeout=120).stdout
+    funcs, cur = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            head = re.search(r"icm_sweeps_kernelILi(\d)ELi8ELi(\d)E", line)
+            cur = (int(head.group(1)), int(head.group(2))) if head else None
+            if cur is not None:
+                funcs[cur] = []
+        elif cur is not None and re.search(r"/\*[0-9a-f]{4}\*/", line):
+            funcs[cur].append(line.split("*/", 1)[1].split(";")[0].strip())
+    out = {}
+    for key, ins in funcs.items():
+        loads = [i for i, x in enumerate(ins) if "LDG" in x and "U16" in x]
+        serial = 0
+        for a, b in zip(loads, loads[1:]):
+            reg = re.search(r"LDG\S*\s+(R\d+)", ins[a]).group(1)
+            sources = [x.split(",", 1)[1] for x in ins[a + 1:b] if "," in x]
+            serial += any(re.search(rf"\b{reg}\b", x) for x in sources)
+        out[key] = (len(loads), serial)
+    return out
+
+
+def phase_k7(torch, C, data, dev):
+    """Phase 2c: K7 at the integer fixture and the SIFT width of phase 2b."""
+    from local_search_quantization_torch.utils.synth import random_codes
+
+    rng = np.random.default_rng(11)
+    n = 8192
+    Xi = torch.as_tensor(rng.integers(-3, 4, (n, D)).astype(np.float32), device=dev)
+    Ci = torch.as_tensor(rng.integers(-1, 2, (M, H, D)).astype(np.float32), device=dev)
+    Bi = torch.as_tensor(random_codes(12, n, M, H), device=dev)
+    err, _, _ = compare_k7(torch, sweeps_args(torch, Xi, Ci, Bi, 13), "integer fixture",
+                           False)
+    X = torch.as_tensor(data[1][:K1_N], device=dev)
+    B0 = torch.as_tensor(random_codes(14, K1_N, M, H), device=dev)
+    serr, ms, plain = compare_k7(torch, sweeps_args(torch, X, C, B0, 15), "SIFT width", True)
+    sass = k7_sass()
+    names = {(2, 0): "K5", (1, 0): "K6", (2, 1): "full", (2, 2): "predwrite",
+             (2, 3): "nowrite", (2, 4): "noargmin", (2, 5): "mmonly"}
+    print("K7 SASS (cuobjdump, 8 candidates a lane), bf16 table loads a table row "
+          "(of them serialized: read before the next load issues): " + ", ".join(
+              f"{name} {sass[key][0]} ({sass[key][1]})" for key, name in names.items()
+              if key in sass))
+    check(sass.get((2, 5), (0, 0))[0] >= 8, f"K7 mmonly lost its table loads: {sass}")
+    return max(err, serr), ms, plain
+
+
+def phase_l2(torch, dev):
+    """Phase 2d: the probe against its plain version, then the L2 gather
+    rates and the practical bounds of K1, K5 and K6. Returns {kernel:
+    practical bound ms}."""
+    from local_search_quantization_torch.ops import l2_probe
+
+    gen = torch.Generator(device=dev).manual_seed(1)
+    for dtype in (torch.bfloat16, torch.float32):
+        table = torch.randint(-2, 3, (M * M * H, 256), generator=gen, device=dev).to(dtype)
+        want = l2_probe.l2_gather_reference(table, warps=4096, rows_per_warp=16, seed=3)
+        for wide in (False, True):
+            got = l2_probe.l2_gather(table, warps=4096, rows_per_warp=16, wide=wide, seed=3)
+            torch.cuda.synchronize()
+            check(torch.equal(got, want), f"L2 probe ({dtype}, wide={wide}) sums differ "
+                                          "from its plain version")
+    print("L2 probe: every warp's sum identical to the plain version (bf16 and f32 "
+          "rows, one element and 16 bytes a lane)")
+    rates = {}
+    for label, row_bytes, dtype in (("512 B bf16 rows, 6.4 MB table", 2 * H, torch.bfloat16),
+                                    ("1 KB f32 rows, 12.8 MB table", 4 * H, torch.float32)):
+        for wide in (False, True):
+            r = l2_probe.l2_gather_rate(row_bytes, M * M * H * row_bytes, dtype, wide=wide,
+                                        device=dev)
+            rates[(row_bytes, wide)] = r["gbps"]
+            print(f"[{CARD}] L2 gather, {label}, {'16 B' if wide else 'one element'} a "
+                  f"lane: {r['gbps']:.1f} GB/s ({r['bytes'] / 1e9:.3f} GB in "
+                  f"{r['ms']:.4f} ms)")
+    # Table bytes each kernel gathers at its phase-2 shape: m - 1 rows of h
+    # values a visit, icmiter * m visits a round.
+    k1_bytes = K1_N * K1_ROUNDS * ICMITER * M * (M - 1) * H * 4
+    k5_bytes = K1_N * ICMITER * M * (M - 1) * H * 2
+    bf16_rate = max(rates[(2 * H, False)], rates[(2 * H, True)])
+    f32_rate = max(rates[(4 * H, False)], rates[(4 * H, True)])
+    bounds = {"ils_encode": k1_bytes / f32_rate / 1e6,
+              "icm_sweeps_v2": k5_bytes / bf16_rate / 1e6,
+              "icm_sweeps_v1": k5_bytes / bf16_rate / 1e6}
+    bounds["icm_sweeps_dissect"] = bounds["icm_sweeps_v2"]
+    print(f"[{CARD}] practical bounds from the L2 rate: K1 {k1_bytes / 1e9:.1f} GB / "
+          f"{f32_rate:.1f} GB/s = {bounds['ils_encode']:.3f} ms; K5 and K6 "
+          f"{k5_bytes / 1e9:.1f} GB / {bf16_rate:.1f} GB/s = "
+          f"{bounds['icm_sweeps_v2']:.3f} ms")
+    return bounds
+
+
+def phase_bench_path(torch, dev):
+    """Path D: the encoder bench twins at full size, the counters zeroed just
+    before and read just after."""
+    from local_search_quantization_torch.benchmarks import bench, bench_icm_phases
+    from local_search_quantization_torch.benchmarks import bench_kernel_variants
+    from local_search_quantization_torch.ops.icm_kernels import DISSECT_VARIANTS
+
+    torch.cuda.synchronize()
+    zero_counters()
+    t0 = time.perf_counter()
+    variants = bench_kernel_variants.run(device=dev)
+    headline = bench.run(device=dev)
+    phases = bench_icm_phases.run(device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counters()
+    for line in (bench_kernel_variants.lines(variants) + bench.lines(headline)
+                 + bench_icm_phases.lines(phases)):
+        print(f"[{CARD}] path D: {line}")
+    print(f"path D: wall {wall:.3f} s; kernel launches {launches}")
+    check(all(launches["dissect"][v] > 0 for v in DISSECT_VARIANTS)
+          and launches["ils_encode"] > 0 and launches["icm_sweeps_v2"] > 0,
+          f"path D: a kernel of the path never launched: {launches}")
+    check(all(np.isfinite(ms) and ms > 0 for ms, _ in variants.values())
+          and headline["vecs_per_sec"] > 0 and all(np.isfinite(v) for v in phases.values()),
+          "path D: a bench twin returned a time that is not positive and finite")
+    return launches
 
 
 def phase_k2(torch, C, data, dev):
@@ -661,7 +878,7 @@ def drive_path(torch, demo, data, dev, label, mode, init):
 
 
 COUNTED = ("ils_encode", "scan_topk", "icm_sweeps_v2", "icm_sweeps_v1", "scan_select",
-           "scan_key")
+           "scan_key", "icm_sweeps_dissect")
 
 
 def zero_counters():
@@ -669,6 +886,8 @@ def zero_counters():
 
     icm_kernels.ils_encode_streamed.launches = 0
     icm_kernels.fused_icm_sweeps.launches.update(v2=0, v1=0)
+    for v in icm_kernels.DISSECT_VARIANTS:
+        icm_kernels.icm_sweeps_dissect.launches[v] = 0
     for name in ("scan_select", "scan_key", "k2_filter", "k2_select"):
         getattr(select_kernels, name).launches = 0
     select_kernels.scan_topk.dense_launches = select_kernels.scan_topk.failed = 0
@@ -679,7 +898,10 @@ def read_counters() -> dict:
 
     out = {"ils_encode": icm_kernels.ils_encode_streamed.launches,
            "icm_sweeps_v2": icm_kernels.fused_icm_sweeps.launches["v2"],
-           "icm_sweeps_v1": icm_kernels.fused_icm_sweeps.launches["v1"]}
+           "icm_sweeps_v1": icm_kernels.fused_icm_sweeps.launches["v1"],
+           "dissect": dict(icm_kernels.icm_sweeps_dissect.launches)}
+    # K7 counts its launches per variant; its kernels line counts them all.
+    out["icm_sweeps_dissect"] = sum(out["dissect"].values())
     for name in ("scan_select", "scan_key", "k2_filter", "k2_select"):
         out[name] = getattr(select_kernels, name).launches
     # K2's dense path, and the queries rerun there after a failed certificate.
@@ -915,11 +1137,14 @@ def main() -> int:
           f"{time.perf_counter() - t0:.3f} s")
     C, k1 = phase_k1(torch, data, dev)
     sweeps = phase_sweeps(torch, C, data, dev)
+    k7 = phase_k7(torch, C, data, dev)
+    practical = phase_l2(torch, dev)
     k2, k2_inputs = phase_k2(torch, C, data, dev)
     k3, t0, cap = phase_k3(torch, k2_inputs)
     k4 = phase_k4(torch, k2_inputs, t0, cap)
     del k2_inputs
-    paths = (*phase_main(torch, demo, data, dev), phase_serving(torch, data, dev))
+    paths = (*phase_main(torch, demo, data, dev), phase_serving(torch, data, dev),
+             phase_bench_path(torch, dev))
     # Each kernel's count summed over the paths that run it (K6 is on none).
     launches = {name: sum(p[name] for p in paths) for name in COUNTED}
 
@@ -933,7 +1158,7 @@ def main() -> int:
                                        M * M * H * H * 4, k1_extra)),
         "scan_topk": k2, "icm_sweeps_v2": (*sweeps["v2"], *sweep_bound),
         "icm_sweeps_v1": (*sweeps["v1"], *sweep_bound), "scan_select": k3,
-        "scan_key": k4}
+        "scan_key": k4, "icm_sweeps_dissect": (*k7, *sweep_bound)}
     # No single PyTorch call computes any of these functions: library_ms is
     # null (torch.topk, the select half of K2 and K3 alone, is printed above).
     kernels = [{"name": name, "route": "cuda", "source": src, "replaces": site,
@@ -942,6 +1167,10 @@ def main() -> int:
                 "bound_ms": measured[name][3], "bound_by": measured[name][4],
                 "library_ms": None}
                for name, (src, site) in KERNELS.items()]
+    # The L2 gather probe's bound where the kernel gathers table rows from L2.
+    for entry in kernels:
+        if entry["name"] in practical:
+            entry["practical_bound_ms"] = practical[entry["name"]]
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

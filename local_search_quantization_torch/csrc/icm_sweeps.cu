@@ -35,6 +35,20 @@
 // together. Adds only and no fast math, so no sum is reassociated or
 // contracted, and the plain PyTorch version (fused_icm_sweeps_reference)
 // gives the same codes bit for bit.
+//
+// K7: timing dissections of K5's visit (replaces
+// benchmarks/bench_kernel_variants.py:kernel, entry point
+// lsq_icm_sweeps_dissect). The same kernel with a DISSECT switch that takes
+// parts of the visit out, on K5's j-stacked table: kWhole ("full") is K5's
+// function, kPredWrite writes the new code through m predicated stores (the
+// TPU body's pl.when(j == jj) writes), kNoWrite never writes the state, kNoArgmin
+// writes code 3 in place of the argmin, kMmOnly keeps the table sum alone.
+// Where a part is taken out, what is left would feed nothing and nvcc would
+// delete it, so each variant writes a per-row f32 sink that keeps its work
+// live: kMmOnly and kNoArgmin each lane's running sum of its scores over
+// the visits, reduced once per row at the end; kNoWrite the sum of the
+// argmin codes; kWhole and kPredWrite 0. kProduction (K5, K6) writes no sink
+// and compiles to the code it compiled to before the switch existed.
 #include <cuda_runtime.h>
 #include <climits>
 #include <cmath>
@@ -62,13 +76,18 @@ __device__ __forceinline__ float bf16_bits_to_f32(unsigned short b) {
   return __uint_as_float(static_cast<unsigned>(b) << 16);
 }
 
+// K7's switches; kProduction is K5 and K6 as they run on the encode path.
+enum Dissect { kProduction, kWhole, kPredWrite, kNoWrite, kNoArgmin, kMmOnly };
+
 // VARIANT 2: K5 (j-stacked table, pair rows first, then the unary).
 // VARIANT 1: K6 ([m, m, h, h] table, unary first).
-template <int VARIANT, int CPL>
+template <int VARIANT, int CPL, int DISSECT = kProduction>
 __global__ void __launch_bounds__(kWarps * 32)
 icm_sweeps_kernel(const int* __restrict__ B, const float* __restrict__ unaries,
                   const unsigned short* __restrict__ lut, const int* __restrict__ visits,
-                  int n, int m, int h, int nvisit, int* __restrict__ out_b) {
+                  int n, int m, int h, int nvisit, int* __restrict__ out_b,
+                  float* __restrict__ sink) {
+  static_assert(DISSECT == kProduction || VARIANT == 2, "K7 dissects K5's visit");
   extern __shared__ float smem[];
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
@@ -83,6 +102,8 @@ icm_sweeps_kernel(const int* __restrict__ B, const float* __restrict__ unaries,
   if (lane < m) cur[lane] = B[static_cast<size_t>(row) * m + lane];
   __syncwarp();
 
+  float lane_sum = 0.0f;  // kMmOnly, kNoArgmin: this lane's scores, summed
+  int code_sum = 0;       // kNoWrite: the argmin codes, summed
   for (int s = 0; s < nvisit; ++s) {
     const int j = __ldg(&visits[s]);
     if (static_cast<unsigned>(j) >= static_cast<unsigned>(m)) continue;
@@ -111,6 +132,18 @@ icm_sweeps_kernel(const int* __restrict__ B, const float* __restrict__ unaries,
         acc[t] = c < h ? u[j * h + c] + acc[t] : INFINITY;
       }
     }
+    if constexpr (DISSECT == kMmOnly || DISSECT == kNoArgmin) {
+#pragma unroll
+      for (int t = 0; t < CPL; ++t) {
+        if (lane + 32 * t < h) lane_sum += acc[t];
+      }
+      if constexpr (DISSECT == kNoArgmin) {
+        __syncwarp();
+        if (lane == 0) cur[j] = 3;
+        __syncwarp();
+      }
+      continue;
+    }
     float bv = acc[0];
     int bc = lane < h ? lane : INT_MAX;
 #pragma unroll
@@ -121,33 +154,55 @@ icm_sweeps_kernel(const int* __restrict__ B, const float* __restrict__ unaries,
       }
     }
     warp_argmin(bv, bc);
+    if constexpr (DISSECT == kNoWrite) {
+      code_sum += bc;
+      continue;
+    }
     __syncwarp();
-    if (lane == 0) cur[j] = bc;
+    if constexpr (DISSECT == kPredWrite) {
+      if (lane == 0) {
+        for (int jj = 0; jj < m; ++jj) {
+          if (j == jj) cur[jj] = bc;
+        }
+      }
+    } else {
+      if (lane == 0) cur[j] = bc;
+    }
     __syncwarp();
   }
   if (lane < m) out_b[static_cast<size_t>(row) * m + lane] = cur[lane];
+  if constexpr (DISSECT != kProduction) {
+    float v = DISSECT == kNoWrite ? static_cast<float>(code_sum) : 0.0f;
+    if constexpr (DISSECT == kMmOnly || DISSECT == kNoArgmin) {
+      v = lane_sum;
+      for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(kFull, v, off);
+    }
+    if (lane == 0) sink[row] = v;
+  }
 }
 
-template <int VARIANT, int CPL>
+template <int VARIANT, int CPL, int DISSECT>
 int launch(const void* B, const void* unaries, const void* lut, const void* visits, int n,
-           int m, int h, int nvisit, void* out_b, cudaStream_t stream, int smem) {
-  cudaError_t err = cudaFuncSetAttribute(icm_sweeps_kernel<VARIANT, CPL>,
+           int m, int h, int nvisit, void* out_b, void* sink, cudaStream_t stream,
+           int smem) {
+  cudaError_t err = cudaFuncSetAttribute(icm_sweeps_kernel<VARIANT, CPL, DISSECT>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int grid = (n + kWarps - 1) / kWarps;
-  icm_sweeps_kernel<VARIANT, CPL><<<grid, kWarps * 32, smem, stream>>>(
+  icm_sweeps_kernel<VARIANT, CPL, DISSECT><<<grid, kWarps * 32, smem, stream>>>(
       static_cast<const int*>(B), static_cast<const float*>(unaries),
       static_cast<const unsigned short*>(lut), static_cast<const int*>(visits), n, m, h,
-      nvisit, static_cast<int*>(out_b));
+      nvisit, static_cast<int*>(out_b), static_cast<float*>(sink));
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int VARIANT>
+template <int VARIANT, int DISSECT = kProduction>
 int dispatch(const void* B, const void* unaries, const void* lut, const void* visits, int n,
-             int m, int h, int nvisit, void* out_b, void* stream, int smem) {
+             int m, int h, int nvisit, void* out_b, void* sink, void* stream, int smem) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define LSQ_ICM_LAUNCH(CPL) \
-  return launch<VARIANT, CPL>(B, unaries, lut, visits, n, m, h, nvisit, out_b, s, smem)
+#define LSQ_ICM_LAUNCH(CPL)                                                                  \
+  return launch<VARIANT, CPL, DISSECT>(B, unaries, lut, visits, n, m, h, nvisit, out_b, sink, \
+                                       s, smem)
   if (h <= 32) LSQ_ICM_LAUNCH(1);
   if (h <= 64) LSQ_ICM_LAUNCH(2);
   if (h <= 128) LSQ_ICM_LAUNCH(4);
@@ -171,7 +226,7 @@ int lsq_icm_max_h() { return 1024; }
 int lsq_icm_sweeps_v2(const void* B, const void* unaries, const void* lut,
                       const void* visits, int n, int m, int h, int nvisit, void* out_b,
                       void* stream) {
-  return dispatch<2>(B, unaries, lut, visits, n, m, h, nvisit, out_b, stream,
+  return dispatch<2>(B, unaries, lut, visits, n, m, h, nvisit, out_b, nullptr, stream,
                      lsq_icm_smem_bytes(m, h));
 }
 
@@ -179,8 +234,29 @@ int lsq_icm_sweeps_v2(const void* B, const void* unaries, const void* lut,
 int lsq_icm_sweeps_v1(const void* B, const void* unaries, const void* lut,
                       const void* visits, int n, int m, int h, int nvisit, void* out_b,
                       void* stream) {
-  return dispatch<1>(B, unaries, lut, visits, n, m, h, nvisit, out_b, stream,
+  return dispatch<1>(B, unaries, lut, visits, n, m, h, nvisit, out_b, nullptr, stream,
                      lsq_icm_smem_bytes(m, h));
+}
+
+// K7: variant 0 full, 1 predwrite, 2 nowrite, 3 noargmin, 4 mmonly, on K5's
+// j-stacked table; sink is [n] f32 (see the head of this file).
+int lsq_icm_sweeps_dissect(int variant, const void* B, const void* unaries, const void* lut,
+                           const void* visits, int n, int m, int h, int nvisit, void* out_b,
+                           void* sink, void* stream) {
+  const int smem = lsq_icm_smem_bytes(m, h);
+#define LSQ_ICM_DISSECT(V, D) \
+  case V:                     \
+    return dispatch<2, D>(B, unaries, lut, visits, n, m, h, nvisit, out_b, sink, stream, smem)
+  switch (variant) {
+    LSQ_ICM_DISSECT(0, kWhole);
+    LSQ_ICM_DISSECT(1, kPredWrite);
+    LSQ_ICM_DISSECT(2, kNoWrite);
+    LSQ_ICM_DISSECT(3, kNoArgmin);
+    LSQ_ICM_DISSECT(4, kMmOnly);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef LSQ_ICM_DISSECT
 }
 
 const char* lsq_error_string(int err) {

@@ -47,9 +47,12 @@ def _host(x) -> np.ndarray:
     return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
 
 
-def _not_ported(what: str, queue: int) -> NotImplementedError:
+def _not_ported(what: str, module: str) -> NotImplementedError:
+    """The error of a feature the port does not have yet; it names the module
+    that brings it (ROADMAP.md, "Modules to port"), not a queue number, which
+    changes as the roadmap is rewritten."""
     return NotImplementedError(f"{what} is not ported to the PyTorch package yet "
-                               f"(ROADMAP.md, queue {queue})")
+                               f"(module {module}; ROADMAP.md, modules to port)")
 
 
 def entry_device(device) -> torch.device:
@@ -86,7 +89,7 @@ class Index:
         if method not in _METHODS:
             raise ValueError(f"method must be one of {_METHODS}, got {method}")
         if method == "rvq":
-            raise _not_ported("RVQ", 5)
+            raise _not_ported("RVQ", "RVQ")
         if device is None:
             device = next((v.device for v in model if isinstance(v, torch.Tensor)),
                           torch.device("cpu"))
@@ -203,7 +206,7 @@ class Index:
         if method not in _METHODS:
             raise ValueError(f"method must be one of {_METHODS}, got {method}")
         if method == "rvq":
-            raise _not_ported("RVQ", 5)
+            raise _not_ported("RVQ", "RVQ")
         if refine not in (None, "sq8", "f32"):
             raise ValueError(f"refine must be None, 'sq8' or 'f32', got {refine!r}")
         if sr not in ("none", "SR-D", "SR-C"):
@@ -289,9 +292,9 @@ class Index:
         with open(os.path.join(path, "meta.json")) as f:
             meta = json.load(f)
         if meta["method"] == "rvq":
-            raise _not_ported("RVQ", 5)
+            raise _not_ported("RVQ", "RVQ")
         if os.path.exists(os.path.join(path, "ivf.npz")):
-            raise _not_ported(f"the IVF partition of {path} (ivf.npz)", 4)
+            raise _not_ported(f"the IVF partition of {path} (ivf.npz)", "IVF")
         model = ckpt.load_model(os.path.join(path, "model.npz"), device)
         codes = ckpt.load_codes(os.path.join(path, "codes.npz"))
         B = codes["B"]
@@ -396,7 +399,7 @@ class Index:
     # -- operations ---------------------------------------------------------
 
     def build_ivf(self, *args, **kwargs) -> None:
-        raise _not_ported("Index.build_ivf", 4)
+        raise _not_ported("Index.build_ivf", "IVF")
 
     def attach_refine(self, X, kind: str = "sq8") -> None:
         """Keep a (scalar-quantized) copy of the original vectors, [n, d] in
@@ -451,8 +454,8 @@ class Index:
         by exact squared L2 to the stored vectors (ids then int64). precision
         "bf16" rounds the query LUTs to bf16; it composes with refine, the
         recommended pairing when using it at all. Default "f32" matches the
-        reference scanners. mesh and nprobe are not ported yet (ROADMAP.md
-        queues 6 and 4) and raise.
+        reference scanners. mesh and nprobe are not ported yet (modules
+        parallel/ and IVF, ROADMAP.md) and raise.
         """
         Q = self._queries(Q)
         if Q.ndim != 2 or Q.shape[1] != self.d:
@@ -462,9 +465,9 @@ class Index:
         if precision not in ("f32", "bf16"):
             raise ValueError(f"precision must be 'f32' or 'bf16', got {precision!r}")
         if mesh is not None:
-            raise _not_ported("search(mesh=...), the sharded query", 6)
+            raise _not_ported("search(mesh=...), the sharded query", "parallel/")
         if nprobe is not None and nprobe != 0:
-            raise _not_ported("search(nprobe=...), the IVF route", 4)
+            raise _not_ported("search(nprobe=...), the IVF route", "IVF")
         if refine is not None and refine != 0:
             from local_search_quantization_torch.refine import rerank
 

@@ -10,6 +10,11 @@
   launch, against bf16 pairwise tables. Port of `icm_pallas.fused_icm_sweeps`
   (kernels `_icm_kernel_v2`, variant "v2", and `_icm_kernel`, variant "v1");
   CUDA in `csrc/icm_sweeps.cu`, plain version `fused_icm_sweeps_reference`.
+- K7 `icm_sweeps_dissect`: K5's visit with parts taken out, to time them
+  apart (variants "full", "predwrite", "nowrite", "noargmin", "mmonly").
+  Port of the kernel in `benchmarks/bench_kernel_variants.py`; CUDA in
+  `csrc/icm_sweeps.cu` (`lsq_icm_sweeps_dissect`), plain version
+  `icm_sweeps_dissect_reference`.
 
 Each wrapper takes the plain version only for tensors on the CPU; a CUDA
 tensor goes to the kernel, or the call raises.
@@ -197,25 +202,35 @@ def fused_icm_sweeps_reference(B, unaries, binaries_bf16, order, *, icmiter: int
     """
     if variant not in _VARIANTS:
         raise ValueError(f"variant must be one of {_VARIANTS}, got {variant!r}")
-    n, m = B.shape
-    h = unaries.shape[2]
+    if variant == "v2":
+        return _k5_sweeps(B, unaries, binaries_to_j_stacked(binaries_bf16), order, icmiter)
     cur = B.long().clone()
-    order = [int(j) for j in torch.as_tensor(order).tolist()]
-    if variant == "v1":
-        table = binaries_bf16.float()
-        for _ in range(icmiter):
-            for j in order:
-                cur[:, j] = torch.argmin(_condition(unaries[:, j], table[:, j], cur, j),
-                                         dim=1)
-        return cur.to(torch.int32)
-    bint = binaries_to_j_stacked(binaries_bf16).float()  # [m, m*h, h]
+    table = binaries_bf16.float()
     for _ in range(icmiter):
-        for j in order:
-            cond = torch.zeros((n, h), dtype=torch.float32, device=unaries.device)
-            for k in range(m):
-                if k != j:
-                    cond = cond + bint[j][k * h + cur[:, k]]
-            cur[:, j] = torch.argmin(unaries[:, j] + cond, dim=1)
+        for j in [int(j) for j in torch.as_tensor(order).tolist()]:
+            cur[:, j] = torch.argmin(_condition(unaries[:, j], table[:, j], cur, j), dim=1)
+    return cur.to(torch.int32)
+
+
+def _visit_scores(unaries, bint, cur, j):
+    """K5's scores at a visit to codebook j: the pair rows bint[j][k*h + B_k]
+    of the j-stacked f32 table summed for k != j in k order, then the unary."""
+    n, m = cur.shape
+    h = unaries.shape[2]
+    cond = torch.zeros((n, h), dtype=torch.float32, device=unaries.device)
+    for k in range(m):
+        if k != j:
+            cond = cond + bint[j][k * h + cur[:, k]]
+    return unaries[:, j] + cond
+
+
+def _k5_sweeps(B, unaries, stacked_bf16, order, icmiter):
+    """K5's plain loop on its j-stacked [m, m*h, h] bf16 table."""
+    bint = stacked_bf16.float()
+    cur = B.long().clone()
+    for _ in range(icmiter):
+        for j in [int(j) for j in torch.as_tensor(order).tolist()]:
+            cur[:, j] = torch.argmin(_visit_scores(unaries, bint, cur, j), dim=1)
     return cur.to(torch.int32)
 
 
@@ -275,3 +290,131 @@ def fused_icm_sweeps(B, unaries, binaries_bf16, order, *, icmiter: int,
 
 
 fused_icm_sweeps.launches = {v: 0 for v in _VARIANTS}
+
+
+# K7's variants, in the order of the C entry point's `variant` argument.
+DISSECT_VARIANTS = ("full", "predwrite", "nowrite", "noargmin", "mmonly")
+# The code "noargmin" writes in place of the argmin (bench_kernel_variants.py:72).
+_NOARGMIN_CODE = 3
+
+
+def _dissect_table(binaries_bf16: torch.Tensor) -> torch.Tensor:
+    """K5's j-stacked [m, m*h, h] table: given as is, or stacked from the
+    [m, m, h, h] pairwise table."""
+    return binaries_bf16 if binaries_bf16.dim() == 3 else binaries_to_j_stacked(binaries_bf16)
+
+
+def _warp_sum(lanes: torch.Tensor) -> torch.Tensor:
+    """Lane 0's value after the kernel's xor-butterfly sum over 32 lanes."""
+    idx = torch.arange(32, device=lanes.device)
+    for off in (16, 8, 4, 2, 1):
+        lanes = lanes + lanes[:, idx ^ off]
+    return lanes[:, 0]
+
+
+def icm_sweeps_dissect_reference(B, unaries, binaries_bf16, order, *, icmiter: int,
+                                 variant: str):
+    """Plain PyTorch version of K7, in the kernel's summation order.
+
+    Each variant runs K5's visits (`order`, `icmiter` times over) with a
+    part taken out; only "full" and "predwrite" are encoders:
+
+    - "full", "predwrite": K5's codes; sink 0.
+    - "nowrite": the argmin of every visit, never written: codes B; sink
+      the sum of the argmin codes over the visits.
+    - "noargmin": the scores, then code 3 written: codes B with every
+      visited column 3; sink the scores summed as the kernel sums them.
+    - "mmonly": the scores alone: codes B; sink as "noargmin".
+
+    The kernel's score sum: lane l adds its candidates c = l, l+32, ...
+    (c < h) visit by visit, then the 32 lane sums meet in an xor butterfly.
+
+    B [n, m] int, unaries [n, m, h] f32, binaries_bf16 the [m, m, h, h]
+    bf16 table or K5's j-stacked [m, m*h, h] one, order [m]. Returns
+    (codes [n, m] int32, sink [n] f32).
+    """
+    if variant not in DISSECT_VARIANTS:
+        raise ValueError(f"variant must be one of {DISSECT_VARIANTS}, got {variant!r}")
+    n = B.shape[0]
+    h = unaries.shape[2]
+    dev = unaries.device
+    sink = torch.zeros(n, dtype=torch.float32, device=dev)
+    if variant in ("full", "predwrite"):
+        return _k5_sweeps(B, unaries, _dissect_table(binaries_bf16), order, icmiter), sink
+    bint = _dissect_table(binaries_bf16).float()
+    cur = B.long().clone()
+    lanes = torch.zeros((n, 32), dtype=torch.float32, device=dev)
+    for _ in range(icmiter):
+        for j in [int(j) for j in torch.as_tensor(order).tolist()]:
+            scores = _visit_scores(unaries, bint, cur, j)
+            if variant == "nowrite":
+                sink = sink + torch.argmin(scores, dim=1).float()
+                continue
+            for t in range(0, h, 32):
+                w = min(32, h - t)
+                lanes[:, :w] = lanes[:, :w] + scores[:, t:t + w]
+            if variant == "noargmin":
+                cur[:, j] = _NOARGMIN_CODE
+    if variant in ("noargmin", "mmonly"):
+        sink = _warp_sum(lanes)
+    return cur.to(torch.int32), sink
+
+
+def icm_sweeps_dissect(B, unaries, binaries_bf16, order, *, icmiter: int, variant: str):
+    """K7: one variant of K5's dissected visit, one launch for a CUDA tensor.
+
+    Same arguments and results as `icm_sweeps_dissect_reference`, which CPU
+    tensors get. On the card B and order are int32, unaries f32 and the
+    table bf16, all contiguous; a table given j-stacked ([m, m*h, h]) is
+    used as it is, so a caller that times the kernel stacks it once. Counts
+    its launches per variant in `icm_sweeps_dissect.launches`.
+    """
+    if variant not in DISSECT_VARIANTS:
+        raise ValueError(f"variant must be one of {DISSECT_VARIANTS}, got {variant!r}")
+    dev = unaries.device
+    if dev.type == "cpu":
+        return icm_sweeps_dissect_reference(B, unaries, binaries_bf16, order,
+                                            icmiter=icmiter, variant=variant)
+    if dev.type != "cuda":
+        raise ValueError(f"icm_sweeps_dissect: unsupported device {dev}")
+    n, m = B.shape
+    h = unaries.shape[2]
+    lut = _dissect_table(binaries_bf16)
+    want = {
+        "B": (B, torch.int32, (n, m)),
+        "unaries": (unaries, torch.float32, (n, m, h)),
+        "table": (lut, torch.bfloat16, (m, m * h, h)),
+        "order": (order, torch.int32, (m,)),
+    }
+    for name, (t, dtype, shape) in want.items():
+        if t.device != dev or t.dtype != dtype or tuple(t.shape) != shape \
+                or not t.is_contiguous():
+            raise ValueError(
+                f"icm_sweeps_dissect: {name} must be a contiguous {dtype} "
+                f"{shape} tensor on {dev}, got {t.dtype} {tuple(t.shape)} "
+                f"on {t.device}")
+    if not 1 <= m <= 32 or h <= _NOARGMIN_CODE:
+        raise ValueError(f"icm_sweeps_dissect: needs 1 <= m <= 32 and h > "
+                         f"{_NOARGMIN_CODE}, got m={m}, h={h}")
+    lib = _build.load("icm_sweeps")
+    lib.lsq_icm_smem_bytes.argtypes = [_I, _I]
+    if lib.lsq_icm_smem_bytes(m, h) > 227 * 1024 or h > lib.lsq_icm_max_h():
+        raise ValueError(f"icm_sweeps_dissect: m={m}, h={h} needs more shared "
+                         "memory or registers than the kernel has")
+    out = torch.empty((n, m), dtype=torch.int32, device=dev)
+    sink = torch.empty((n,), dtype=torch.float32, device=dev)
+    if n == 0:
+        return out, sink
+    visits = order.repeat(icmiter).contiguous()
+    fn = lib.lsq_icm_sweeps_dissect
+    fn.argtypes = [_I] + [_P] * 4 + [_I] * 4 + [_P] * 3
+    fn.restype = _I
+    err = fn(DISSECT_VARIANTS.index(variant), _ptr(B), _ptr(unaries), _ptr(lut),
+             _ptr(visits), n, m, h, icmiter * m, _ptr(out), _ptr(sink),
+             torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(lib, err, f"icm_sweeps_dissect {variant} kernel launch")
+    icm_sweeps_dissect.launches[variant] += 1
+    return out, sink
+
+
+icm_sweeps_dissect.launches = {v: 0 for v in DISSECT_VARIANTS}

@@ -71,8 +71,8 @@ def update_codebooks(X: torch.Tensor, B: torch.Tensor, h: int, *,
         return _solve_cholesky(B, X, h, ridge)
     if method in ("lsqr", "lsmr"):
         raise NotImplementedError(
-            f"codebook method {method!r} is not ported yet (ROADMAP.md, "
-            "modules queue, item 2: batched LSQR); use 'cholesky'")
+            f"codebook method {method!r} is not ported yet (module batched "
+            "LSQR; ROADMAP.md, modules to port); use 'cholesky'")
     raise ValueError(f"unknown codebook update method: {method!r}")
 
 

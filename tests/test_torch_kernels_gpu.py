@@ -14,12 +14,17 @@ import torch
 from local_search_quantization_torch import _build
 from local_search_quantization_torch.ops import icm, luts
 from local_search_quantization_torch.ops.icm_kernels import (
+    DISSECT_VARIANTS,
+    binaries_to_j_stacked,
     fused_icm_sweeps,
     fused_icm_sweeps_reference,
+    icm_sweeps_dissect,
+    icm_sweeps_dissect_reference,
     ils_encode_streamed,
     ils_encode_streamed_reference,
     ils_kernel_fits,
 )
+from local_search_quantization_torch.ops import l2_probe
 from local_search_quantization_torch.ops import select_kernels as sk
 from local_search_quantization_torch.ops.select_kernels import (
     _k3_smem_bytes,
@@ -224,6 +229,54 @@ def test_icm_sweeps_wrapper_rejects_bad_inputs(cuda):
                          icmiter=1)  # not contiguous
     with pytest.raises(ValueError):
         fused_icm_sweeps(B, u, b, order, icmiter=1, variant="v3")
+
+
+@pytest.mark.parametrize("variant", DISSECT_VARIANTS)
+@pytest.mark.parametrize("shape", [
+    # (n, d, m, h, icmiter, integer)
+    (4096, 32, 7, 256, 2, True),
+    (3001, 16, 4, 20, 3, False),  # h < 32: idle lanes; ragged last block
+    (1024, 16, 3, 300, 2, False),  # h > 256: 16 candidates per lane
+])
+def test_k7_matches_plain_version(cuda, variant, shape):
+    """Codes identical; the sink identical for "nowrite", within 1e-5 of the
+    plain version (relative, plus 1e-5 of its mean magnitude) for the score
+    sums; "full" identical to K5 on the same inputs."""
+    n, d, m, h, icmiter, integer = shape
+    B, u, b16, order = _sweeps_inputs(cuda, n, d, m, h, integer)
+    stacked = binaries_to_j_stacked(b16).contiguous()
+    before = icm_sweeps_dissect.launches[variant]
+    codes, sink = icm_sweeps_dissect(B, u, stacked, order, icmiter=icmiter, variant=variant)
+    want_codes, want_sink = icm_sweeps_dissect_reference(B, u, b16, order, icmiter=icmiter,
+                                                         variant=variant)
+    assert icm_sweeps_dissect.launches[variant] == before + 1
+    torch.testing.assert_close(codes, want_codes, rtol=0, atol=0)
+    if variant in ("noargmin", "mmonly"):
+        torch.testing.assert_close(sink, want_sink, rtol=1e-5,
+                                   atol=1e-5 * float(want_sink.abs().mean()))
+    else:
+        torch.testing.assert_close(sink, want_sink, rtol=0, atol=0)
+    if variant == "full":
+        k5 = fused_icm_sweeps(B, u, b16, order, icmiter=icmiter, variant="v2")
+        torch.testing.assert_close(codes, k5, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("dtype,wide", [(torch.bfloat16, False), (torch.bfloat16, True),
+                                        (torch.float32, False), (torch.float32, True)])
+def test_l2_probe_sums_the_rows_it_claims(cuda, dtype, wide):
+    """One run of the probe on an integer table (every sum exact): each
+    warp's sum equals the plain version's over the same hashed rows."""
+    elems = 512 // torch.tensor([], dtype=dtype).element_size()
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    table = torch.randint(-2, 3, (12_544, elems), generator=gen, device=cuda).to(dtype)
+    before = l2_probe.l2_gather.launches
+    got = l2_probe.l2_gather(table, warps=2048, rows_per_warp=16, wide=wide, seed=5)
+    want = l2_probe.l2_gather_reference(table, warps=2048, rows_per_warp=16, seed=5)
+    assert l2_probe.l2_gather.launches == before + 1
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    rate = l2_probe.l2_gather_rate(512, 12_544 * 512, dtype, wide=wide, device=cuda,
+                                   warps=1024, rows_per_warp=32, reps=2)
+    assert rate["gbps"] > 0 and rate["bytes"] == 1024 * 32 * 512
 
 
 def _kth_t0(lut, Bt, extra, rank):
