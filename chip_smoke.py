@@ -16,16 +16,22 @@ nothing of JAX. Phases:
    order and break ties to the lowest index;
 2b. K5 and K6 (the per-round ICM sweeps kernels, variants "v2" and "v1")
    against their plain versions on the same codes: an integer fixture
-   (n=8192) and the SIFT width (n=131072, icmiter=4, trained codebooks).
-   Codes must be identical;
+   (n=8192), three other lane maps (m=5 at h=40, no multiple of 32; h=300,
+   16 candidates a lane loaded element by element with a masked tail; h=512,
+   two 16-byte loads a lane a row) and the SIFT width (n=131072, icmiter=4,
+   trained codebooks). Codes must be identical;
 2c. K7 (K5's visit dissected: variants "full", "predwrite", "nowrite",
    "noargmin", "mmonly") against its plain version, at the integer fixture
    and at the SIFT width of phase 2b: codes identical, the per-row sink
    identical for "nowrite" and within 1e-5 for the score sums, "full"
    identical to K5; each variant's time on a table stacked once, beside
-   K5's and K6's wrappers in the same phase; the SASS's bf16 table loads
-   a table row per variant and how many of them the schedule serializes
-   (cuobjdump), where "mmonly" must keep all its loads;
+   K5's and K6's wrappers in the same phase; K5 at each stage of its
+   redesign (`icm_sweeps_step`: the first port's visit, the same with its
+   loads hoisted, the packed kernel that runs), codes identical, timed in
+   turns; and for every one of these builds its registers (ptxas), the
+   table loads in its SASS and how many of them the schedule serializes
+   (cuobjdump): the builds that run must show a visit's 8 row loads with
+   none serialized;
 2d. the L2 gather probe (`csrc/l2_probe.cu`): its sums against its plain
    version, then the rate at which L2 serves random 512 B bf16 rows of a
    6.4 MB table (K5, K6) and 1 KB f32 rows of a 12.8 MB table (K1), one
@@ -46,7 +52,10 @@ nothing of JAX. Phases:
 3b. K3 (the streamed select) on K2's inputs: "sorted" cold, "unsorted" cold
    and "sorted" with the warm bound t0 of `scan_topk_warm`, against its
    plain version (dists on every row; ids on every row for "sorted", on the
-   rows whose k-th value is not tied for "unsorted") and against K2; peak
+   rows whose k-th value is not tied for "unsorted") and against K2, at nq
+   1, 32 and 1000 on uint8 and int32 codes and on a base of 300,007 rows
+   (no multiple of 16: element-wise staging, a ragged last tile); its times
+   at each nq, the pre-scan's, the bytes its design reads from L2, and peak
    device memory beside K2's;
 3c. K4 (the key append) on the same inputs with the warm t0: appended id
    sets and counts identical to the plain version; the key variant's
@@ -311,6 +320,14 @@ def phase_sweeps(torch, C, data, dev):
     Ci = torch.as_tensor(rng.integers(-1, 2, (M, H, D)).astype(np.float32), device=dev)
     Bi = torch.as_tensor(random_codes(12, n, M, H), device=dev)
     compare_sweeps(torch, sweeps_args(torch, Xi, Ci, Bi, 13), "integer fixture", False)
+    # Other lane maps: h=40 (two candidates a lane, no multiple of 32: idle
+    # lanes), h=300 (16 a lane, no multiple of 16: the element-wise loads with
+    # a masked tail) and h=512 (16 a lane, two 16-byte loads a row).
+    for h, seed in ((40, 21), (300, 22), (512, 23)):
+        Xh = torch.as_tensor(rng.normal(size=(4096, 32)).astype(np.float32) * 10, device=dev)
+        Ch = torch.as_tensor(rng.normal(size=(5, h, 32)).astype(np.float32) * 3, device=dev)
+        Bh = torch.as_tensor(random_codes(seed, 4096, 5, h), device=dev)
+        compare_sweeps(torch, sweeps_args(torch, Xh, Ch, Bh, seed), f"m=5, h={h}", False)
     X = torch.as_tensor(data[1][:K1_N], device=dev)
     B0 = torch.as_tensor(random_codes(14, K1_N, M, H), device=dev)
     return compare_sweeps(torch, sweeps_args(torch, X, C, B0, 15), "SIFT width", True)
@@ -325,8 +342,9 @@ SINK_RTOL = 1e-5
 def compare_k7(torch, args, label, time_it):
     """K7's variants against the plain version, and "full" against K5, on
     the same codes; with time_it, each variant's time on a table stacked
-    once, K5's and K6's wrappers beside them. Returns (max error, full ms,
-    plain full ms)."""
+    once, K5's and K6's wrappers and K5's earlier stages (`icm_sweeps_step`,
+    codes identical to K5's) beside them. Returns (max error, full ms, plain
+    full ms, {name: ms})."""
     from local_search_quantization_torch.ops import icm_kernels as ik
 
     B, u, b16, order = args
@@ -351,10 +369,22 @@ def compare_k7(torch, args, label, time_it):
               f"{sink_ok}){', identical to K5: ' + str(same_k5) if variant == 'full' else ''}")
         check(rows == 0 and sink_ok and same_k5,
               f"K7 {variant} {label}: kernel and plain version (or K5) disagree")
+    for step in ik.SWEEP_STEPS:
+        codes = ik.icm_sweeps_step(B, u, stacked, order, icmiter=ICMITER, step=step)
+        torch.cuda.synchronize()
+        rows = int((codes != k5).any(1).sum())
+        print(f"K5 stage {step!r} {label}: rows with other codes than K5 {rows}")
+        check(rows == 0, f"K5 stage {step} {label}: codes differ from K5's")
     if not time_it:
-        return err, None, None
+        return err, None, None, {}
     ms = {v: cuda_ms(torch, lambda v=v: ik.icm_sweeps_dissect(
         B, u, stacked, order, icmiter=ICMITER, variant=v), 5) for v in ik.DISSECT_VARIANTS}
+    # The stages in turns, twice: interleaved, hoisted, packed, and back.
+    turns = {step: [] for step in ik.SWEEP_STEPS}
+    for step in ik.SWEEP_STEPS + ik.SWEEP_STEPS[::-1]:
+        turns[step].append(cuda_ms(torch, lambda step=step: ik.icm_sweeps_step(
+            B, u, stacked, order, icmiter=ICMITER, step=step), 5))
+    ms.update({step: min(t) for step, t in turns.items()})
     ms["K5 wrapper"] = cuda_ms(torch, lambda: ik.fused_icm_sweeps(
         *args, icmiter=ICMITER, variant="v2"), 5)
     ms["K6 wrapper"] = cuda_ms(torch, lambda: ik.fused_icm_sweeps(
@@ -369,17 +399,55 @@ def compare_k7(torch, args, label, time_it):
     print(f"[{CARD}] K7 {label} beside: K5 wrapper (stacks the table each call) "
           f"{ms['K5 wrapper']:.3f} ms, K6 wrapper {ms['K6 wrapper']:.3f} ms, the stacking "
           f"alone {ms['stack']:.3f} ms; plain full {plain:.3f} ms")
-    return err, ms["full"], plain
+    print(f"[{CARD}] K5's redesign stage by stage {label}, table stacked once, each timed "
+          "twice in turns (ms): " + ", ".join(
+              f"{step} {turns[step][0]:.3f} / {turns[step][1]:.3f}" for step in ik.SWEEP_STEPS))
+    ms["K5"], ms["K6"] = ms["K5 wrapper"], ms["K6 wrapper"]
+    return err, ms["full"], plain, ms
+
+
+# An instantiation of csrc/icm_sweeps.cu's kernel template in a mangled name:
+# <VARIANT, CPL, DISSECT, STEP, VEC>.
+SWEEPS_KERNEL = r"icm_sweeps_kernelILi(\d)ELi(\d+)ELi(\d)ELi(\d)ELb([01])EE"
+# The 8-candidates-a-lane builds that phase 2c reads: (layout, switch, step,
+# vector loads), layout 2 for K5's table and 1 for K6's, switch 0 for K5/K6
+# and 1-5 for K7's variants, step 2 the kernel that runs.
+SWEEPS_BUILDS = {"K5": (2, 0, 2, 1), "K6": (1, 0, 2, 1), "full": (2, 1, 2, 1),
+                 "predwrite": (2, 2, 2, 1), "nowrite": (2, 3, 2, 1),
+                 "noargmin": (2, 4, 2, 1), "mmonly": (2, 5, 2, 1),
+                 "interleaved": (2, 0, 0, 0), "hoisted": (2, 0, 1, 0)}
+
+
+def sweeps_registers() -> dict:
+    """{(layout, switch, step, vec): registers} of the 8-candidates-a-lane
+    instantiations, from ptxas's lines in the build log."""
+    import re
+
+    from local_search_quantization_torch import _build
+
+    out, cur = {}, None
+    for line in _build.BUILD_INFO["icm_sweeps"]["log"].splitlines():
+        head = re.search(SWEEPS_KERNEL, line)
+        if head and ("Compiling entry function" in line or "Function properties" in line):
+            v, cpl, d, step, vec = (int(g) for g in head.groups())
+            cur = (v, d, step, vec) if cpl == 8 else None
+        used = re.search(r"Used (\d+) registers", line)
+        if used and cur is not None:
+            out[cur] = int(used.group(1))
+    return out
 
 
 def k7_sass() -> dict:
-    """What the SASS of the 8-candidates-a-lane instantiations issues for one
-    table row, read with cuobjdump from the built library: {(layout, switch):
-    (bf16 table loads, serialized loads)}, layout 2 for K5's table and 1 for
-    K6's, switch 0 for K5/K6 and 1-5 for K7's variants. A load is serialized
-    when its register is read before the next table load issues, so the next
-    one waits a whole L2 round trip. Fails where cuobjdump is missing: it
-    ships with nvcc, which the build needs."""
+    """What the SASS of the 8-candidates-a-lane instantiations issues for the
+    bf16 table, read with cuobjdump from the built library: {(layout, switch,
+    step, vec): (table loads, serialized loads)}. A vector build loads a
+    lane's share of a row in one 16-byte load (LDG.E.128.CONSTANT; the
+    unaries' staging loads are streaming, not CONSTANT), the others in eight
+    2-byte loads (U16), so the first count is rows for the one and values
+    for the other. A load is serialized when a register it writes is read
+    before the next table load issues, so the next one waits a whole L2
+    round trip. Fails where cuobjdump is missing: it ships with nvcc, which
+    the build needs."""
     import re
     import shutil
 
@@ -395,20 +463,25 @@ def k7_sass() -> dict:
     funcs, cur = {}, None
     for line in sass.splitlines():
         if "Function :" in line:
-            head = re.search(r"icm_sweeps_kernelILi(\d)ELi8ELi(\d)E", line)
-            cur = (int(head.group(1)), int(head.group(2))) if head else None
-            if cur is not None:
+            head = re.search(SWEEPS_KERNEL, line)
+            cur = None
+            if head and head.group(2) == "8":
+                v, _, d, step, vec = (int(g) for g in head.groups())
+                cur = (v, d, step, vec)
                 funcs[cur] = []
         elif cur is not None and re.search(r"/\*[0-9a-f]{4}\*/", line):
             funcs[cur].append(line.split("*/", 1)[1].split(";")[0].strip())
     out = {}
     for key, ins in funcs.items():
-        loads = [i for i, x in enumerate(ins) if "LDG" in x and "U16" in x]
+        wide = bool(key[3])
+        loads = [i for i, x in enumerate(ins) if "LDG" in x and (
+            (".128" in x and "CONSTANT" in x) if wide else "U16" in x)]
         serial = 0
         for a, b in zip(loads, loads[1:]):
-            reg = re.search(r"LDG\S*\s+(R\d+)", ins[a]).group(1)
+            first = int(re.search(r"LDG\S*\s+R(\d+)", ins[a]).group(1))
+            regs = "|".join(f"R{first + i}" for i in range(4 if wide else 1))
             sources = [x.split(",", 1)[1] for x in ins[a + 1:b] if "," in x]
-            serial += any(re.search(rf"\b{reg}\b", x) for x in sources)
+            serial += any(re.search(rf"\b({regs})\b", x) for x in sources)
         out[key] = (len(loads), serial)
     return out
 
@@ -422,26 +495,38 @@ def phase_k7(torch, C, data, dev):
     Xi = torch.as_tensor(rng.integers(-3, 4, (n, D)).astype(np.float32), device=dev)
     Ci = torch.as_tensor(rng.integers(-1, 2, (M, H, D)).astype(np.float32), device=dev)
     Bi = torch.as_tensor(random_codes(12, n, M, H), device=dev)
-    err, _, _ = compare_k7(torch, sweeps_args(torch, Xi, Ci, Bi, 13), "integer fixture",
-                           False)
+    err = compare_k7(torch, sweeps_args(torch, Xi, Ci, Bi, 13), "integer fixture",
+                     False)[0]
     X = torch.as_tensor(data[1][:K1_N], device=dev)
     B0 = torch.as_tensor(random_codes(14, K1_N, M, H), device=dev)
-    serr, ms, plain = compare_k7(torch, sweeps_args(torch, X, C, B0, 15), "SIFT width", True)
-    sass = k7_sass()
-    names = {(2, 0): "K5", (1, 0): "K6", (2, 1): "full", (2, 2): "predwrite",
-             (2, 3): "nowrite", (2, 4): "noargmin", (2, 5): "mmonly"}
-    print("K7 SASS (cuobjdump, 8 candidates a lane), bf16 table loads a table row "
-          "(of them serialized: read before the next load issues): " + ", ".join(
-              f"{name} {sass[key][0]} ({sass[key][1]})" for key, name in names.items()
-              if key in sass))
-    check(sass.get((2, 5), (0, 0))[0] >= 8, f"K7 mmonly lost its table loads: {sass}")
+    serr, ms, plain, times = compare_k7(torch, sweeps_args(torch, X, C, B0, 15),
+                                        "SIFT width", True)
+    sass, regs = k7_sass(), sweeps_registers()
+    print(f"[{CARD}] K5, K6, K7 and K5's earlier stages at n={K1_N}, {ICMITER} sweeps "
+          "(8 candidates a lane; table loads in the SASS, one 16-byte load a row for "
+          "the vector builds and eight 2-byte loads a row for the two strided stages; "
+          "serialized: a register of the load is read before the next table load "
+          "issues): " + "; ".join(
+              f"{name} {times[name]:.3f} ms, {regs.get(key, '?')} registers, "
+              f"{sass[key][0]} loads ({sass[key][1]} serialized)"
+              for name, key in SWEEPS_BUILDS.items() if key in sass))
+    for name, key in SWEEPS_BUILDS.items():
+        check(key in sass and sass[key][0] >= (8 if key[3] or name == "hoisted" else 1),
+              f"{name}: its build or its table loads are missing from the SASS: {sass}")
+    # The kernel that runs keeps all m - 1 rows of a visit in flight (one
+    # chunk of 8 row slots at m=7): every variant, and K5 and K6, must show
+    # its 8 row loads with none serialized.
+    for name, key in SWEEPS_BUILDS.items():
+        if key[2] == 2:
+            check(sass[key] == (8, 0), f"{name}: expected 8 row loads, none serialized, "
+                                       f"got {sass[key]}")
     return max(err, serr), ms, plain
 
 
 def phase_l2(torch, dev):
     """Phase 2d: the probe against its plain version, then the L2 gather
     rates and the practical bounds of K1, K5 and K6. Returns {kernel:
-    practical bound ms}."""
+    practical bound ms}, with the bf16 rate in GB/s under "l2_gbps"."""
     from local_search_quantization_torch.ops import l2_probe
 
     gen = torch.Generator(device=dev).manual_seed(1)
@@ -475,6 +560,7 @@ def phase_l2(torch, dev):
               "icm_sweeps_v2": k5_bytes / bf16_rate / 1e6,
               "icm_sweeps_v1": k5_bytes / bf16_rate / 1e6}
     bounds["icm_sweeps_dissect"] = bounds["icm_sweeps_v2"]
+    bounds["l2_gbps"] = bf16_rate
     print(f"[{CARD}] practical bounds from the L2 rate: K1 {k1_bytes / 1e9:.1f} GB / "
           f"{f32_rate:.1f} GB/s = {bounds['ils_encode']:.3f} ms; K5 and K6 "
           f"{k5_bytes / 1e9:.1f} GB / {bf16_rate:.1f} GB/s = "
@@ -678,46 +764,96 @@ def peak_gib(torch, fn) -> float:
     return torch.cuda.max_memory_allocated() / 2**30
 
 
-def phase_k3(torch, inputs):
-    """K3 against its plain version and against K2 on K2's inputs."""
+def check_k3(torch, label, luts, Bt, extra, t0, wants, k2):
+    """K3 "sorted" cold, "unsorted" cold and "sorted" warm on one set of
+    inputs against the plain version's answers `wants` = {warm: (d, i) at
+    K + 1} and against K2's cold answer `k2`. Returns the largest distance
+    error (0.0 unless a check is about to fail)."""
+    from local_search_quantization_torch.ops import select_kernels as sk
+
+    nq, err = luts.shape[0], 0.0
+    for name, t, unsorted in (("sorted cold", None, False), ("unsorted cold", None, True),
+                              ("sorted warm", t0, False)):
+        got_d, got_i = sk.scan_select(luts, Bt, extra, K, t, unsorted=unsorted)
+        want_d, want_i = wants[t is not None]
+        torch.cuda.synchronize()
+        err = max(err, float(torch.nan_to_num((got_d - want_d[:, :K]).abs(), posinf=0.0).max()))
+        same_d = torch.equal(got_d, want_d[:, :K])
+        rows = want_d[:, K - 1] < want_d[:, K] if unsorted else torch.ones(
+            nq, dtype=torch.bool, device=luts.device)
+        same_i = torch.equal(got_i[rows], want_i[rows, :K])
+        # K2's cold answer cut at t0 is the top-k of the rows below t0.
+        k2_d = k2[0] if t is None else torch.where(k2[0] >= t, float("inf"), k2[0])
+        k2_i = k2[1] if t is None else torch.where(k2[0] >= t, -1, k2[1])
+        same_k2 = torch.equal(k2_d, got_d) and (unsorted or torch.equal(k2_i, got_i))
+        print(f"K3 {name}, {label}: dists identical {same_d}, ids identical on "
+              f"{int(rows.sum())} rows {same_i}, identical to K2 {same_k2}")
+        check(same_d and same_i and same_k2, f"K3 {name}, {label} disagrees")
+    return err
+
+
+def phase_k3(torch, inputs, l2_rate):
+    """K3 against its plain version and against K2 on K2's inputs: nq 1, 32
+    and 1000, uint8 and int32 codes, and a base whose length is no multiple
+    of 16 (the element-wise staging and a ragged last tile); then its times,
+    the pre-scan's, and the bytes its design reads from L2."""
     from local_search_quantization_torch.ops import select_kernels as sk
 
     luts, Bt, extra, _ = inputs
+    k2 = sk.scan_topk(luts, Bt, extra, K)
+    Bt32 = Bt.to(torch.int32)
     t0, cap = sk.warm_bound(luts, Bt, extra, k=K)
+    wants = {warm: sk.scan_select_reference(luts, Bt, extra, K + 1, t0 if warm else None)
+             for warm in (False, True)}
     err = 0.0
-    for label, t, unsorted in (("sorted cold", None, False),
-                               ("unsorted cold", None, True),
-                               ("sorted warm", t0, False)):
-        got_d, got_i = sk.scan_select(luts, Bt, extra, K, t, unsorted=unsorted)
-        want_d, want_i = sk.scan_select_reference(luts, Bt, extra, K + 1, t)
-        torch.cuda.synchronize()
-        derr = float(torch.nan_to_num((got_d - want_d[:, :K]).abs(), posinf=0.0).max())
-        err = max(err, derr)
-        same_d = torch.equal(got_d, want_d[:, :K])
-        rows = want_d[:, K - 1] < want_d[:, K] if unsorted else torch.ones(
-            K2_QUERIES, dtype=torch.bool, device=luts.device)
-        same_i = torch.equal(got_i[rows], want_i[rows, :K])
-        k2_d, k2_i = sk.fused_scan_topk(luts, Bt, extra, k=K, t0=t, variant="grouped")
-        same_k2 = torch.equal(k2_d, got_d) and (
-            unsorted or torch.equal(k2_i, got_i))
-        print(f"K3 {label}: dists identical {same_d}, ids identical on "
-              f"{int(rows.sum())} rows {same_i}, identical to K2 {same_k2}")
-        check(same_d and same_i and same_k2, f"K3 {label} disagrees")
-    ms ={label: cuda_ms(torch, lambda t=t, u=u: sk.scan_select(
-        luts, Bt, extra, K, t, unsorted=u), 5)
-        for label, t, u in (("sorted", None, False), ("unsorted", None, True),
-                            ("warm", t0, False))}
+    for nq in (K2_QUERIES, 32, 1):
+        cut = {w: (d[:nq], i[:nq]) for w, (d, i) in wants.items()}
+        for name, codes in (("uint8", Bt), ("int32", Bt32)):
+            err = max(err, check_k3(torch, f"nq={nq}, {name} codes", luts[:nq].contiguous(),
+                                    codes, extra, t0[:nq].contiguous(), cut,
+                                    (k2[0][:nq], k2[1][:nq])))
+    del Bt32
+    n2 = 300_007
+    Br, er, lr = Bt[:, :n2].contiguous(), extra[:n2].contiguous(), luts[:32].contiguous()
+    tr = sk.warm_bound(lr, Br, er, k=K)[0]
+    err = max(err, check_k3(
+        torch, f"nq=32, n={n2} (no multiple of 16)", lr, Br, er, tr,
+        {warm: sk.scan_select_reference(lr, Br, er, K + 1, tr if warm else None)
+         for warm in (False, True)}, sk.scan_topk(lr, Br, er, K)))
+    times = {}
+    for nq in (1, 32, K2_QUERIES):
+        lq, tq = luts[:nq].contiguous(), t0[:nq].contiguous()
+        times[nq] = {name: cuda_ms(torch, lambda t=t, u=u: sk.scan_select(
+            lq, Bt, extra, K, t, unsorted=u), 5)
+            for name, t, u in (("sorted", None, False), ("unsorted", None, True),
+                               ("warm", tq, False))}
+        times[nq]["pre-scan"] = cuda_ms(torch, lambda: sk.warm_bound(lq, Bt, extra, k=K), 5)
+        g = sk.k3_geometry(M, H, 1, K)[0]
+        seg = sk.k3_segments(K2_N, nq, g, torch.cuda.get_device_properties(0)
+                             .multi_processor_count, K)[0]
+        print(f"[{CARD}] K3 time at nq={nq} x {K2_N}, k={K} ({g} queries a block, {seg} "
+              f"segments): sorted {times[nq]['sorted']:.3f} ms, unsorted "
+              f"{times[nq]['unsorted']:.3f} ms, sorted warm {times[nq]['warm']:.3f} ms; the "
+              f"pre-scan (warm_bound: every 16th row, rank {sk.warm_rank_cap(K)[0]}, "
+              f"{sk.k3_geometry(M, H, 1, sk.warm_rank_cap(K)[0])[0]} queries a block) "
+              f"{times[nq]['pre-scan']:.3f} ms")
     plain = cuda_ms(torch, lambda: sk.scan_select_reference(luts, Bt, extra, K, t0), 2)
     mem_k3 = peak_gib(torch, lambda: sk.scan_select(luts, Bt, extra, K))
     mem_k2 = peak_gib(torch, lambda: sk.scan_topk(luts, Bt, extra, K))
-    print(f"[{CARD}] K3 time for {K2_QUERIES} queries x {K2_N} at k={K}: sorted "
-          f"{ms['sorted']:.3f} ms, unsorted {ms['unsorted']:.3f} ms, sorted warm "
-          f"{ms['warm']:.3f} ms (warm bound incl. pre-scan: "
-          f"{cuda_ms(torch, lambda: sk.warm_bound(luts, Bt, extra, k=K), 5):.3f} ms); "
-          f"plain {plain:.3f} ms")
+    # Codes and extra are read once a group of g queries, from L2 after the
+    # first group: the first port read them once a query.
+    g = sk.k3_geometry(M, H, 1, K)[0]
+    l2_bytes = -(-K2_QUERIES // g) * K2_N * (M + 4)
+    print(f"[{CARD}] K3 for {K2_QUERIES} queries: plain version {plain:.3f} ms; codes and "
+          f"extra read {-(-K2_QUERIES // g)} times ({g} queries a block): "
+          f"{l2_bytes / 1e9:.3f} GB, {l2_bytes / l2_rate / 1e6:.3f} ms at the L2 probe's "
+          f"{l2_rate:.1f} GB/s (one block a query: {K2_QUERIES * K2_N * (M + 4) / 1e9:.3f} GB, "
+          f"{K2_QUERIES * K2_N * (M + 4) / l2_rate / 1e6:.3f} ms); shared-memory lookups "
+          f"{K2_QUERIES * K2_N * M / SMEM_LOOKUPS * 1e3:.4f} ms")
     print(f"K3 peak device memory {mem_k3:.3f} GiB against K2's {mem_k2:.3f} GiB "
           "(inputs included)")
-    return (err, ms["sorted"], plain, *scan_bound(K2_QUERIES, K2_N, K, 1)), t0, cap
+    return ((err, times[K2_QUERIES]["sorted"], plain, *scan_bound(K2_QUERIES, K2_N, K, 1)),
+            t0, cap)
 
 
 def check_key(torch, label, luts, Bt, extra, t0, cap, k2_out):
@@ -1140,7 +1276,7 @@ def main() -> int:
     k7 = phase_k7(torch, C, data, dev)
     practical = phase_l2(torch, dev)
     k2, k2_inputs = phase_k2(torch, C, data, dev)
-    k3, t0, cap = phase_k3(torch, k2_inputs)
+    k3, t0, cap = phase_k3(torch, k2_inputs, practical.pop("l2_gbps"))
     k4 = phase_k4(torch, k2_inputs, t0, cap)
     del k2_inputs
     paths = (*phase_main(torch, demo, data, dev), phase_serving(torch, data, dev),

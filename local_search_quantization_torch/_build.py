@@ -2,7 +2,7 @@
 
 Each `csrc/<name>.cu` has a plain C interface (pointers, ints, the stream;
 it returns `cudaGetLastError()`), so it builds in seconds without PyTorch's
-headers. The shared library lands in `build/torch_kernels/` at the repo root
+headers; the `*.cuh` files there are headers that the sources share. The shared library lands in `build/torch_kernels/` at the repo root
 (listed in `.gitignore`), named by a hash of its source and flags: a process
 builds each kernel once, and a changed source builds anew.
 """
@@ -49,10 +49,14 @@ KERNELS = ("ils_encode", "scan_topk", "icm_sweeps", "scan_select", "scan_key", "
 
 def _paths(name: str) -> tuple[str, str]:
     """(source, library) of a kernel; the library name carries a hash of
-    the source and flags."""
+    the source, of every header in csrc/ (a source may include any) and of
+    the flags, so a changed header builds anew."""
     src = os.path.join(_CSRC, name + ".cu")
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    headers = sorted(f for f in os.listdir(_CSRC) if f.endswith(".cuh"))
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in [src] + [os.path.join(_CSRC, f) for f in headers]:
+        with open(path, "rb") as f:
+            digest.update(f.read())
     return src, os.path.join(BUILD_DIR, f"lib{name}_{digest.hexdigest()[:16]}.so")
 
 

@@ -14,7 +14,9 @@
 // 2. k2_filter<CodeT, G>: grid (row segments) x (groups of G queries). A
 //    block holds its G queries' LUTs in shared memory as
 //    s_lut[(j*h + c)*G + q] (G*m*h*4 bytes: 114,688 at G=16, m=7, h=256) and
-//    stages each tile of kTile rows of codes and extra with 16-byte loads.
+//    stages each tile of kTile rows of codes and extra with 16-byte loads
+//    (the staging, the code loads and the lookup are scan_common.cuh's, which
+//    K3 shares).
 //    Lane l serves the query pair 2p, 2p + 1 with p = l % (G/2), and row
 //    slot l / (G/2), four consecutive rows a slot: a warp scores 64/G rows
 //    of G queries at once, each code is a broadcast, and one 8-byte load
@@ -57,9 +59,14 @@
 #include <cstddef>
 #include <cstdint>
 
+#include "scan_common.cuh"
+
 namespace {
 
-constexpr unsigned kFull = 0xffffffffu;
+using lsq_scan::kFull;
+using lsq_scan::mono;
+using lsq_scan::unmono;
+
 constexpr uint32_t kInfKey = 0xff800000u;  // mono(+inf)
 constexpr int kSmemLimit = 227 * 1024;
 
@@ -76,18 +83,6 @@ constexpr int kTile = 2048;        // rows a filter block stages at once
 constexpr int kRowsPerLane = 4;    // consecutive rows a lane scores per step
 constexpr int kSelectThreads = 1024;
 constexpr int kSelectMax = 16384;  // most keys a select block sorts
-
-// Monotone image of a float: a < b as floats iff mono(a) < mono(b) as
-// unsigned ints (NaN excluded). -0.0 maps with +0.0, as the two compare equal.
-__device__ __forceinline__ uint32_t mono(float f) {
-  uint32_t u = __float_as_uint(f);
-  if (u == 0x80000000u) u = 0u;
-  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
-}
-
-__device__ __forceinline__ float unmono(uint32_t k) {
-  return __uint_as_float((k & 0x80000000u) ? (k & 0x7fffffffu) : ~k);
-}
 
 template <typename CodeT>
 __global__ void __launch_bounds__(kScanThreads)
@@ -257,53 +252,6 @@ inline int filter_group(int m, int h, int code_bytes) {
   return 0;
 }
 
-// Four consecutive rows' codes of one codebook from the staged tile: one
-// 4-byte load for uint8 codes, one 16-byte load for int32.
-__device__ __forceinline__ void load_quad(const uint8_t* p, int (&c)[kRowsPerLane]) {
-  const uint32_t w = *reinterpret_cast<const uint32_t*>(p);
-  c[0] = static_cast<int>(w & 255u);
-  c[1] = static_cast<int>((w >> 8) & 255u);
-  c[2] = static_cast<int>((w >> 16) & 255u);
-  c[3] = static_cast<int>(w >> 24);
-}
-
-__device__ __forceinline__ void load_quad(const int32_t* p, int (&c)[kRowsPerLane]) {
-  const int4 v = *reinterpret_cast<const int4*>(p);
-  c[0] = v.x;
-  c[1] = v.y;
-  c[2] = v.z;
-  c[3] = v.w;
-}
-
-// Stage rows [base, base + rows) of the codes ([m, n]) and extra into shared
-// memory; rows past `rows` get code 0 and extra +inf, so they never append.
-// vec: 16-byte loads (aligned base pointers, n * sizeof(CodeT) % 16 == 0).
-template <typename CodeT>
-__device__ __forceinline__ void stage_tile(CodeT* s_codes, float* s_extra,
-                                           const CodeT* __restrict__ bt,
-                                           const float* __restrict__ extra, int m, int n,
-                                           int base, int rows, bool vec) {
-  const int tid = threadIdx.x;
-  if (vec && rows == kTile) {
-    constexpr int kPer = 16 / sizeof(CodeT);
-    constexpr int kChunks = kTile / kPer;
-    for (int e = tid; e < m * kChunks; e += kFThreads) {
-      const int j = e / kChunks, c = e % kChunks;
-      reinterpret_cast<int4*>(s_codes + j * kTile)[c] =
-          *reinterpret_cast<const int4*>(bt + static_cast<size_t>(j) * n + base + c * kPer);
-    }
-    for (int e = tid; e < kTile / 4; e += kFThreads)
-      reinterpret_cast<float4*>(s_extra)[e] = reinterpret_cast<const float4*>(extra + base)[e];
-  } else {
-    for (int e = tid; e < m * kTile; e += kFThreads) {
-      const int j = e / kTile, r = e % kTile;
-      s_codes[e] = r < rows ? bt[static_cast<size_t>(j) * n + base + r] : CodeT(0);
-    }
-    for (int r = tid; r < kTile; r += kFThreads)
-      s_extra[r] = r < rows ? extra[base + r] : INFINITY;
-  }
-}
-
 // Append row `id` to query gq's buffer when d < thr: one atomicAdd per query
 // and warp, by the leader of the lanes `mask` that serve that query.
 __device__ __forceinline__ void append(float d, float thr, int gq, unsigned mask, int lane,
@@ -338,10 +286,7 @@ k2_filter(const float* __restrict__ luts, const CodeT* __restrict__ bt,
   CodeT* s_codes = reinterpret_cast<CodeT*>(s_extra + kTile);  // [m][kTile]
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int q0 = blockIdx.y * G;
-  for (int e = tid; e < G * mh; e += kFThreads) {
-    const int q = e % G;
-    s_lut[e] = q0 + q < nq ? luts[static_cast<size_t>(q0 + q) * mh + e / G] : 0.0f;
-  }
+  lsq_scan::load_luts<G, kFThreads>(s_lut, luts, q0, nq, mh);
   const int p = lane % kPairs, slot = lane / kPairs;
   const int ga = q0 + 2 * p, gb = ga + 1;
   const float thr_a = ga < nq ? t0[ga] : -INFINITY;  // a padding query never appends
@@ -358,36 +303,19 @@ k2_filter(const float* __restrict__ luts, const CodeT* __restrict__ bt,
   for (int base = seg0; base < seg1; base += kTile) {
     const int rows = min(kTile, seg1 - base);
     __syncthreads();  // the previous tile is consumed
-    stage_tile<CodeT>(s_codes, s_extra, bt, extra, m, n, base, rows, vec != 0);
+    lsq_scan::stage_tile<CodeT, kTile, kFThreads, false>(s_codes, s_extra, bt, extra, m, n,
+                                                         base, rows, vec != 0);
     __syncthreads();
     for (int step = 0; step < rows; step += kStep) {  // block-uniform
       const int r = step + r_lane;
-      int c[kRowsPerLane];
       float da[kRowsPerLane], db[kRowsPerLane];
-      load_quad(s_codes + r, c);
-#pragma unroll
-      for (int u = 0; u < kRowsPerLane; ++u) {
-        const float2 v = *reinterpret_cast<const float2*>(lq + c[u] * G);
-        da[u] = v.x;
-        db[u] = v.y;
-      }
-      for (int j = 1; j < m; ++j) {
-        load_quad(s_codes + j * kTile + r, c);
-        const float* lj = lq + j * h * G;
-#pragma unroll
-        for (int u = 0; u < kRowsPerLane; ++u) {
-          const float2 v = *reinterpret_cast<const float2*>(lj + c[u] * G);
-          da[u] += v.x;
-          db[u] += v.y;
-        }
-      }
-      const float4 e4 = *reinterpret_cast<const float4*>(s_extra + r);
-      const float e[kRowsPerLane] = {e4.x, e4.y, e4.z, e4.w};
+      lsq_scan::score_rows<CodeT, G, kRowsPerLane, kTile>(lq, s_codes, s_extra, r, m, h, da,
+                                                          db);
 #pragma unroll
       for (int u = 0; u < kRowsPerLane; ++u) {
         const uint32_t id = static_cast<uint32_t>(base + r + u);
-        append(da[u] + e[u], thr_a, ga, pmask, lane, id, cap, count, cand_a);
-        append(db[u] + e[u], thr_b, gb, pmask, lane, id, cap, count, cand_b);
+        append(da[u], thr_a, ga, pmask, lane, id, cap, count, cand_a);
+        append(db[u], thr_b, gb, pmask, lane, id, cap, count, cand_b);
       }
     }
   }

@@ -15,6 +15,10 @@
   Port of the kernel in `benchmarks/bench_kernel_variants.py`; CUDA in
   `csrc/icm_sweeps.cu` (`lsq_icm_sweeps_dissect`), plain version
   `icm_sweeps_dissect_reference`.
+- `icm_sweeps_step`: K5 at one stage of its redesign for this card (the
+  first port's visit, the same with its loads hoisted, the kernel that
+  runs), so that one run times them side by side; a measurement tool on no
+  path, with K5's plain version.
 
 Each wrapper takes the plain version only for tensors on the CPU; a CUDA
 tensor goes to the kernel, or the call raises.
@@ -185,6 +189,37 @@ def binaries_to_j_stacked(binaries: torch.Tensor) -> torch.Tensor:
 _VARIANTS = ("v2", "v1")
 
 
+def _sweeps_library(name: str, B, unaries, table, table_shape, order):
+    """Check the inputs of a sweeps kernel on the card (B and order int32,
+    unaries f32, the table bf16 of `table_shape`, all contiguous on the
+    unaries' device, 1 <= m <= 32) and load the library; raises where the
+    kernels do not hold (m, h)."""
+    dev = unaries.device
+    n, m = B.shape
+    h = unaries.shape[2]
+    want = {
+        "B": (B, torch.int32, (n, m)),
+        "unaries": (unaries, torch.float32, (n, m, h)),
+        "table": (table, torch.bfloat16, table_shape),
+        "order": (order, torch.int32, (m,)),
+    }
+    for what, (t, dtype, shape) in want.items():
+        if t.device != dev or t.dtype != dtype or tuple(t.shape) != shape \
+                or not t.is_contiguous():
+            raise ValueError(
+                f"{name}: {what} must be a contiguous {dtype} "
+                f"{shape} tensor on {dev}, got {t.dtype} {tuple(t.shape)} "
+                f"on {t.device}")
+    if not 1 <= m <= 32:
+        raise ValueError(f"{name}: needs 1 <= m <= 32, got m={m}")
+    lib = _build.load("icm_sweeps")
+    lib.lsq_icm_smem_bytes.argtypes = [_I, _I]
+    if lib.lsq_icm_smem_bytes(m, h) > 227 * 1024 or h > lib.lsq_icm_max_h():
+        raise ValueError(f"{name}: m={m}, h={h} needs more shared memory or "
+                         "registers than the kernel has")
+    return lib
+
+
 def fused_icm_sweeps_reference(B, unaries, binaries_bf16, order, *, icmiter: int,
                                variant: str = "v2") -> torch.Tensor:
     """Plain PyTorch version of K5 ("v2") and K6 ("v1"), in each TPU kernel's
@@ -253,26 +288,7 @@ def fused_icm_sweeps(B, unaries, binaries_bf16, order, *, icmiter: int,
         raise ValueError(f"fused_icm_sweeps: unsupported device {dev}")
     n, m = B.shape
     h = unaries.shape[2]
-    want = {
-        "B": (B, torch.int32, (n, m)),
-        "unaries": (unaries, torch.float32, (n, m, h)),
-        "binaries_bf16": (binaries_bf16, torch.bfloat16, (m, m, h, h)),
-        "order": (order, torch.int32, (m,)),
-    }
-    for name, (t, dtype, shape) in want.items():
-        if t.device != dev or t.dtype != dtype or tuple(t.shape) != shape \
-                or not t.is_contiguous():
-            raise ValueError(
-                f"fused_icm_sweeps: {name} must be a contiguous {dtype} "
-                f"{shape} tensor on {dev}, got {t.dtype} {tuple(t.shape)} "
-                f"on {t.device}")
-    if not 1 <= m <= 32:
-        raise ValueError(f"fused_icm_sweeps: needs 1 <= m <= 32, got m={m}")
-    lib = _build.load("icm_sweeps")
-    lib.lsq_icm_smem_bytes.argtypes = [_I, _I]
-    if lib.lsq_icm_smem_bytes(m, h) > 227 * 1024 or h > lib.lsq_icm_max_h():
-        raise ValueError(f"fused_icm_sweeps: m={m}, h={h} needs more shared "
-                         "memory or registers than the kernel has")
+    lib = _sweeps_library("fused_icm_sweeps", B, unaries, binaries_bf16, (m, m, h, h), order)
     out = torch.empty((n, m), dtype=torch.int32, device=dev)
     if n == 0:
         return out
@@ -292,6 +308,53 @@ def fused_icm_sweeps(B, unaries, binaries_bf16, order, *, icmiter: int,
 fused_icm_sweeps.launches = {v: 0 for v in _VARIANTS}
 
 
+# K5's redesign for this card, stage by stage (csrc/icm_sweeps.cu, `Step`).
+SWEEP_STEPS = ("interleaved", "hoisted", "packed")
+
+
+def icm_sweeps_step(B, unaries, binaries_bf16, order, *, icmiter: int, step: str):
+    """K5 as it stood at one stage of its redesign: "interleaved" is the
+    first port's visit (lane l holds candidates l, l+32, ...; each 2-byte
+    table load feeds its add), "hoisted" the same lane map with a visit's
+    loads issued before its adds, "packed" the kernel `fused_icm_sweeps`
+    runs. All three give K5's codes; a run times them side by side.
+
+    Arguments and result as `fused_icm_sweeps(variant="v2")`, whose plain
+    version CPU tensors get; the table may be given j-stacked. On the card
+    it takes eight candidates a lane only: 128 < h <= 256 and h % 8 == 0.
+    Counts its launches per step in `icm_sweeps_step.launches`.
+    """
+    if step not in SWEEP_STEPS:
+        raise ValueError(f"step must be one of {SWEEP_STEPS}, got {step!r}")
+    dev = unaries.device
+    lut = _dissect_table(binaries_bf16)
+    if dev.type == "cpu":
+        return _k5_sweeps(B, unaries, lut, order, icmiter)
+    if dev.type != "cuda":
+        raise ValueError(f"icm_sweeps_step: unsupported device {dev}")
+    n, m = B.shape
+    h = unaries.shape[2]
+    lib = _sweeps_library("icm_sweeps_step", B, unaries, lut, (m, m * h, h), order)
+    if not (128 < h <= 256 and h % 8 == 0):
+        raise ValueError(f"icm_sweeps_step: needs 128 < h <= 256 and h % 8 == 0, "
+                         f"got h={h}")
+    out = torch.empty((n, m), dtype=torch.int32, device=dev)
+    if n == 0:
+        return out
+    visits = order.repeat(icmiter).contiguous()
+    fn = lib.lsq_icm_sweeps_step
+    fn.argtypes = [_I] + [_P] * 4 + [_I] * 4 + [_P] * 2
+    fn.restype = _I
+    err = fn(SWEEP_STEPS.index(step), _ptr(B), _ptr(unaries), _ptr(lut), _ptr(visits),
+             n, m, h, icmiter * m, _ptr(out), torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(lib, err, f"icm_sweeps_step {step} kernel launch")
+    icm_sweeps_step.launches[step] += 1
+    return out
+
+
+icm_sweeps_step.launches = {s: 0 for s in SWEEP_STEPS}
+
+
 # K7's variants, in the order of the C entry point's `variant` argument.
 DISSECT_VARIANTS = ("full", "predwrite", "nowrite", "noargmin", "mmonly")
 # The code "noargmin" writes in place of the argmin (bench_kernel_variants.py:72).
@@ -302,6 +365,16 @@ def _dissect_table(binaries_bf16: torch.Tensor) -> torch.Tensor:
     """K5's j-stacked [m, m*h, h] table: given as is, or stacked from the
     [m, m, h, h] pairwise table."""
     return binaries_bf16 if binaries_bf16.dim() == 3 else binaries_to_j_stacked(binaries_bf16)
+
+
+def candidates_per_lane(h: int) -> int:
+    """Candidates a lane of the sweeps kernels holds: the least of 1, 2, 4,
+    ..., 32 that covers h with 32 lanes (`dispatch` of csrc/icm_sweeps.cu).
+    Lane l holds the consecutive candidates l*CPL, ..., l*CPL + CPL - 1."""
+    cpl = 1
+    while 32 * cpl < h:
+        cpl *= 2
+    return cpl
 
 
 def _warp_sum(lanes: torch.Tensor) -> torch.Tensor:
@@ -326,8 +399,9 @@ def icm_sweeps_dissect_reference(B, unaries, binaries_bf16, order, *, icmiter: i
       visited column 3; sink the scores summed as the kernel sums them.
     - "mmonly": the scores alone: codes B; sink as "noargmin".
 
-    The kernel's score sum: lane l adds its candidates c = l, l+32, ...
-    (c < h) visit by visit, then the 32 lane sums meet in an xor butterfly.
+    The kernel's score sum: lane l adds its candidates c = l*CPL + t,
+    t = 0..CPL-1 (c < h; CPL = `candidates_per_lane(h)`), visit by visit,
+    then the 32 lane sums meet in an xor butterfly.
 
     B [n, m] int, unaries [n, m, h] f32, binaries_bf16 the [m, m, h, h]
     bf16 table or K5's j-stacked [m, m*h, h] one, order [m]. Returns
@@ -344,15 +418,17 @@ def icm_sweeps_dissect_reference(B, unaries, binaries_bf16, order, *, icmiter: i
     bint = _dissect_table(binaries_bf16).float()
     cur = B.long().clone()
     lanes = torch.zeros((n, 32), dtype=torch.float32, device=dev)
+    cpl = candidates_per_lane(h)
+    lane_ids = torch.arange(32, device=dev)
     for _ in range(icmiter):
         for j in [int(j) for j in torch.as_tensor(order).tolist()]:
             scores = _visit_scores(unaries, bint, cur, j)
             if variant == "nowrite":
                 sink = sink + torch.argmin(scores, dim=1).float()
                 continue
-            for t in range(0, h, 32):
-                w = min(32, h - t)
-                lanes[:, :w] = lanes[:, :w] + scores[:, t:t + w]
+            for t in range(cpl):
+                live = lane_ids[lane_ids * cpl + t < h]
+                lanes[:, live] = lanes[:, live] + scores[:, live * cpl + t]
             if variant == "noargmin":
                 cur[:, j] = _NOARGMIN_CODE
     if variant in ("noargmin", "mmonly"):
@@ -380,27 +456,9 @@ def icm_sweeps_dissect(B, unaries, binaries_bf16, order, *, icmiter: int, varian
     n, m = B.shape
     h = unaries.shape[2]
     lut = _dissect_table(binaries_bf16)
-    want = {
-        "B": (B, torch.int32, (n, m)),
-        "unaries": (unaries, torch.float32, (n, m, h)),
-        "table": (lut, torch.bfloat16, (m, m * h, h)),
-        "order": (order, torch.int32, (m,)),
-    }
-    for name, (t, dtype, shape) in want.items():
-        if t.device != dev or t.dtype != dtype or tuple(t.shape) != shape \
-                or not t.is_contiguous():
-            raise ValueError(
-                f"icm_sweeps_dissect: {name} must be a contiguous {dtype} "
-                f"{shape} tensor on {dev}, got {t.dtype} {tuple(t.shape)} "
-                f"on {t.device}")
-    if not 1 <= m <= 32 or h <= _NOARGMIN_CODE:
-        raise ValueError(f"icm_sweeps_dissect: needs 1 <= m <= 32 and h > "
-                         f"{_NOARGMIN_CODE}, got m={m}, h={h}")
-    lib = _build.load("icm_sweeps")
-    lib.lsq_icm_smem_bytes.argtypes = [_I, _I]
-    if lib.lsq_icm_smem_bytes(m, h) > 227 * 1024 or h > lib.lsq_icm_max_h():
-        raise ValueError(f"icm_sweeps_dissect: m={m}, h={h} needs more shared "
-                         "memory or registers than the kernel has")
+    lib = _sweeps_library("icm_sweeps_dissect", B, unaries, lut, (m, m * h, h), order)
+    if h <= _NOARGMIN_CODE:
+        raise ValueError(f"icm_sweeps_dissect: needs h > {_NOARGMIN_CODE}, got h={h}")
     out = torch.empty((n, m), dtype=torch.int32, device=dev)
     sink = torch.empty((n,), dtype=torch.float32, device=dev)
     if n == 0:

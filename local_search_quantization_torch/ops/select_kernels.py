@@ -16,10 +16,12 @@ rows are never returned and empty slots are (+inf, -1).
   stages do not take, run the dense path `scan_topk_dense` (radix select
   over a distance scratch). Variants "grouped" and "grouped_unsorted".
 - K3 `scan_select` (`csrc/scan_select.cu`; TPU `_select_kernel`): the same
-  top-k cut at a warm bound t0, streamed through a per-query shared-memory
-  buffer with no distance scratch. Variants "sorted" (lexicographic) and
-  "unsorted" (value-exact: which ids survive a tie block across the k-th
-  value is free).
+  top-k cut at a warm bound t0, streamed through per-query shared-memory
+  buffers with no distance scratch: a block serves `k3_geometry`'s queries
+  on one of `k3_segments`' row segments, and `merge_segments` merges the
+  segments' survivors. Variants "sorted" (lexicographic) and "unsorted"
+  (value-exact: which ids survive a tie block across the k-th value is
+  free).
 - K4 `scan_key` (`csrc/scan_key.cu`; TPU `_select_kernel_key`): a scan over
   bf16-rounded LUTs that appends every id whose truncated monotone key lies
   below t0's; `fused_scan_topk(variant="key")` re-ranks them in f32 and
@@ -34,6 +36,7 @@ wrapper that launches a kernel counts its launches in `<wrapper>.launches`
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 import os
 
@@ -57,10 +60,15 @@ _K2_CHUNK_KEYS = 1 << 24
 _SIGN64 = -(1 << 63)
 # Shared memory one block may use on Hopper (227 KB).
 _SMEM_LIMIT = 227 * 1024
-# K3: rows a block scores per tile, and the static shared memory it keeps
-# beside the dynamic (histogram, counters, warp offsets); csrc/scan_select.cu.
-_K3_TILE = 2048
-_K3_STATIC_SMEM = 2048
+# K3 (csrc/scan_select.cu): threads a block, the rows a segment is a multiple
+# of, the static shared memory reserved beside the dynamic, one radix
+# histogram a query, and the fewest keys of room a query's buffer keeps
+# beyond `keep` and one step's appends.
+_K3_THREADS = 1024
+_K3_ROWS_UNIT = 1024
+_K3_STATIC_SMEM = 1024
+_K3_HIST_BYTES = 1024
+_K3_MIN_SLACK = 64
 # K4's monotone keys drop their low 13 bits, as the TPU kernel's lane bits
 # (select_pallas.py:74).
 _LANE_BITS = 13
@@ -461,18 +469,117 @@ def select_cap(k: int) -> int:
     return max(128, -(-k // 128) * 128)
 
 
-def _k3_smem_bytes(m: int, h: int, keep: int) -> int:
-    """K3's dynamic shared memory: the f32 LUT (8-byte aligned) and a buffer
-    of 2*keep + one tile of 64-bit (dist, id) keys. Mirrors
-    `lsq_select_smem_bytes` of csrc/scan_select.cu."""
-    return (4 * m * h + 7) // 8 * 8 + 8 * (2 * keep + _K3_TILE)
+def k3_step(g: int) -> int:
+    """Rows a K3 block of g queries scores between two checks of its
+    buffers: g/2 lanes a row, 4, 4, 2, 1 consecutive rows a lane at g = 16,
+    8, 4, 2 (`step_rows` of csrc/scan_select.cu): 512 at g=16, 1024 below."""
+    return _K3_THREADS // (g // 2) * {16: 4, 8: 4, 4: 2, 2: 1}[g]
+
+
+def k3_cap_keys(m: int, h: int, code_bytes: int, g: int) -> int:
+    """Keys each of a K3 block's g queries can buffer in shared memory
+    beside the g interleaved f32 LUTs (16-byte aligned), the staged tiles of
+    extra and codes (one step's rows each; two of them, one at g=2), and a
+    histogram, count and threshold a query; 0 where those alone do not fit.
+    Mirrors `lsq_select_cap_keys`."""
+    stages = 1 if g == 2 else 2
+    fixed = ((4 * g * m * h + 15) // 16 * 16 + stages * k3_step(g) * (4 + m * code_bytes)
+             + g * (_K3_HIST_BYTES + 8) + _K3_STATIC_SMEM)
+    return max(0, (_SMEM_LIMIT - fixed) // (8 * g))
+
+
+@functools.lru_cache(maxsize=None)
+def k3_geometry(m: int, h: int, code_bytes: int, keep: int) -> tuple[int, int]:
+    """(g, cap): the queries a K3 block serves and the keys each buffers, or
+    (0, 0) where K3 does not hold the shape. A buffer must hold `keep` keys,
+    one step's appends (`k3_step`) and some room, since a query trims its
+    buffer each time its appends pass that room: the largest g of 16, 8, 4,
+    2 with room for keep/8 more keys, else the largest with room for 64.
+    At m=7, h=256, uint8
+    codes: 16 queries at the pre-scan's keep of 111, 8 at keep 1000, 2 at
+    keep 10112. A pure function: it needs no build."""
+    for slack in (max(_K3_MIN_SLACK, keep // 8), _K3_MIN_SLACK):
+        for g in (16, 8, 4, 2):
+            cap = k3_cap_keys(m, h, code_bytes, g)
+            if cap >= keep + k3_step(g) + slack:
+                return g, cap
+    return 0, 0
+
+
+# What `k3_segments` weighs, in units of 1024 rows of one block's scan (about
+# 3 us on an H100): the merge sorts segments x keep candidates a query, and
+# torch.sort leaves its fast path for rows above 4096 elements.
+_K3_MERGE_WIDTH = 4096
+_K3_MERGE_FAST = 20_000   # candidates a unit, rows up to _K3_MERGE_WIDTH
+_K3_MERGE_SLOW = 10_000   # candidates a unit above it, after
+_K3_MERGE_SLOW_FIXED = 50  # units of fixed cost
+
+
+@functools.lru_cache(maxsize=None)
+def k3_segments(n: int, nq: int, g: int, sms: int, keep: int) -> tuple[int, int]:
+    """(segments, rows a segment): K3's split of the n rows across blocks. A
+    block (one an SM, by its shared memory) serves g queries on one segment,
+    so segments x ceil(nq/g) blocks run in waves of `sms`; every segment
+    starts cold and pays for it about what 2048 + 8 keep rows of scan cost,
+    and `merge_segments` sorts segments x keep candidates a query. Of 1 ..
+    ceil(2 sms / groups) segments (two blocks an SM at most), each a whole
+    number of 1024 rows, the count with the least waves x (rows a segment +
+    cold start) + merge: a few queries are spread over the card, and a batch
+    whose groups fill the card is not split. A pure function."""
+    units = -(-n // _K3_ROWS_UNIT)
+    groups = -(-nq // g)
+    cold = 2 + keep // 128
+
+    def cost(s: int) -> float:
+        scan = -(-groups * s // sms) * (-(-units // s) + cold)
+        if s == 1:
+            return scan
+        if s * keep <= _K3_MERGE_WIDTH:
+            return scan + nq * s * keep / _K3_MERGE_FAST
+        return scan + _K3_MERGE_SLOW_FIXED + nq * s * keep / _K3_MERGE_SLOW
+
+    best = min(range(1, max(1, min(units, -(-2 * sms // groups))) + 1), key=cost)
+    rows = -(-units // best) * _K3_ROWS_UNIT
+    return -(-n // rows), rows
 
 
 def select_kernel_fits(k: int, m: int, h: int) -> bool:
-    """Whether K3 holds top-k at LUT shape (m, h), in both variants: the
-    shared memory of its larger ("unsorted", `select_cap(k)` rows) buffer
-    fits one block. A pure function: it needs no build."""
-    return _k3_smem_bytes(m, h, select_cap(k)) <= _SMEM_LIMIT - _K3_STATIC_SMEM
+    """Whether K3 holds top-k at LUT shape (m, h), in both variants and both
+    code layouts: its larger ("unsorted", `select_cap(k)` rows) buffer fits
+    a block of two queries with int32 codes staged. A pure function: it
+    needs no build."""
+    return k3_geometry(m, h, 4, select_cap(k))[0] > 0
+
+
+def scan_select_segments_reference(luts: torch.Tensor, Bt: torch.Tensor,
+                                   extra: torch.Tensor | None, keep: int,
+                                   t0: torch.Tensor | None, rows: int):
+    """Plain version of K3's kernel: each segment of `rows` rows yields its
+    own `keep` smallest rows below t0 in (dist, id) order, with base-wide
+    ids: ([nq, segments, keep] f32, int32), (+inf, -1) past a segment's
+    survivors. (The kernel leaves each segment's survivors unsorted.)"""
+    nq, n = luts.shape[0], Bt.shape[1]
+    out_d, out_i = [], []
+    for s0 in range(0, n, rows):
+        e = None if extra is None else extra[s0:s0 + rows]
+        d, i = scan_select_reference(luts, Bt[:, s0:s0 + rows], e, keep, t0)
+        d, i = _pad_cols(d, torch.where(i >= 0, i + s0, i), keep)
+        out_d.append(d)
+        out_i.append(i)
+    if not out_d:
+        return (torch.full((nq, 0, keep), float("inf"), device=luts.device),
+                torch.full((nq, 0, keep), -1, dtype=torch.int32, device=luts.device))
+    return torch.stack(out_d, dim=1), torch.stack(out_i, dim=1)
+
+
+def merge_segments(seg_d: torch.Tensor, seg_i: torch.Tensor, k: int):
+    """The k smallest in (dist, id) order of every segment's survivors
+    ([nq, segments, keep]): the top-k of the union of the segments' top-keeps
+    is the top-k of all rows, for any k <= keep. Returns [nq, k], (+inf, -1)
+    past the survivors."""
+    nq = seg_d.shape[0]
+    d, i = _sort_lex(seg_d.reshape(nq, -1), seg_i.reshape(nq, -1))
+    return _pad_cols(d, i, k)
 
 
 def scan_select(luts: torch.Tensor, Bt: torch.Tensor, extra: torch.Tensor | None,
@@ -484,8 +591,10 @@ def scan_select(luts: torch.Tensor, Bt: torch.Tensor, extra: torch.Tensor | None
     top-k, identical to K2's cut at t0. "unsorted" keeps `select_cap(k)`
     rows by value: its k smallest distances are exact, but which ids survive
     a tie block across the k-th value is free. Both come back sorted by
-    (dist, id), [nq, k] with k = min(k, n). Counts launches in
-    `scan_select.launches`.
+    (dist, id), [nq, k] with k = min(k, n). On the card the rows are split
+    into segments (`k3_segments`), a block serves `k3_geometry`'s g queries
+    on one segment, and `merge_segments` merges the segments' survivors.
+    Counts launches in `scan_select.launches`.
     """
     dev = _cuda_device("scan_select", luts)
     if dev is None:
@@ -513,24 +622,27 @@ def scan_select(luts: torch.Tensor, Bt: torch.Tensor, extra: torch.Tensor | None
         raise ValueError(f"scan_select: k={k} at m={m}, h={h} exceeds one "
                          "block's shared memory (select_kernel_fits)")
     keep = select_cap(k) if unsorted else k
-    out_d = torch.empty((nq, keep), dtype=torch.float32, device=dev)
-    out_i = torch.empty((nq, keep), dtype=torch.int32, device=dev)
     if nq == 0 or k == 0:
-        return out_d[:, :k], out_i[:, :k]
+        return (torch.empty((nq, k), dtype=torch.float32, device=dev),
+                torch.empty((nq, k), dtype=torch.int32, device=dev))
+    g, cap = k3_geometry(m, h, code_bytes, keep)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    segments, rows = k3_segments(n, nq, g, sms, keep)
+    out_d = torch.empty((nq, segments, keep), dtype=torch.float32, device=dev)
+    out_i = torch.empty((nq, segments, keep), dtype=torch.int32, device=dev)
+    vec = int(n * code_bytes % 16 == 0 and Bt.data_ptr() % 16 == 0
+              and extra.data_ptr() % 16 == 0)
     lib = _build.load("scan_select")
-    lib.lsq_select_topk.argtypes = [_P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I,
-                                    _P, _P, _P]
+    lib.lsq_select_topk.argtypes = [_P, _P, _I, _P, _P] + [_I] * 10 + [_P, _P, _P]
     lib.lsq_select_topk.restype = _I
     err = lib.lsq_select_topk(
         luts.data_ptr(), Bt.data_ptr(), code_bytes, extra.data_ptr(),
-        None if t0 is None else t0.data_ptr(), nq, m, h, n, keep,
-        0 if unsorted else 1, out_d.data_ptr(), out_i.data_ptr(),
+        None if t0 is None else t0.data_ptr(), nq, m, h, n, rows, keep,
+        0 if unsorted else 1, g, cap, vec, out_d.data_ptr(), out_i.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check(lib, err, "scan_select kernel launch")
     scan_select.launches += 1
-    d, i = _sort_lex(out_d, out_i)
-    return d[:, :k], i[:, :k]
-
+    return merge_segments(out_d, out_i, k)
 
 scan_select.launches = 0
 

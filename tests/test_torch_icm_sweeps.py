@@ -70,6 +70,43 @@ def test_sweeps_plain_versions_match_pallas_kernels(variant):
     assert (tB.numpy() != B0).any()  # the sweeps did something
 
 
+@pytest.mark.parametrize("variant", ["v2", "v1"])
+@pytest.mark.parametrize("h", [40, 512])
+def test_sweeps_plain_versions_match_pallas_kernels_at_other_widths(variant, h):
+    """h=40 (two candidates a lane on the card, lanes 20-31 idle: no multiple
+    of 32) and h=512 (16 candidates a lane): codes identical to the Pallas
+    kernel in interpret mode on the integer fixture."""
+    rng, X, C, B0 = _integer_fixture(n=32, d=8, m=3, h=h, seed=h)
+    u = jluts.get_unaries(jnp.asarray(X), jnp.asarray(C))
+    b16 = jluts.get_binaries(jnp.asarray(C)).astype(jnp.bfloat16)
+    order = rng.permutation(3).astype(np.int32)
+    jB = icm_pallas.fused_icm_sweeps(jnp.asarray(B0), u, b16, jnp.asarray(order),
+                                     icmiter=2, tile=32, interpret=True, variant=variant)
+    tb16 = _t(np.asarray(b16.astype(jnp.float32))).to(torch.bfloat16)
+    tB = fused_icm_sweeps_reference(_t(B0), _t(u), tb16, _t(order), icmiter=2,
+                                    variant=variant)
+    np.testing.assert_array_equal(tB.numpy(), np.asarray(jB))
+    assert (tB.numpy() != B0).any()
+
+
+@pytest.mark.parametrize("step", icm_kernels.SWEEP_STEPS)
+def test_sweep_steps_are_k5_on_the_cpu(step):
+    """Every stage of K5's redesign computes K5: on the CPU each takes K5's
+    plain version, from the pairwise table or the j-stacked one."""
+    rng, X, C, B0 = _integer_fixture(n=48, m=3, h=24, seed=7)
+    u = tluts.get_unaries(_t(X), _t(C))
+    b16 = tluts.get_binaries(_t(C)).to(torch.bfloat16)
+    order = torch.tensor([1, 2, 0], dtype=torch.int32)
+    want = fused_icm_sweeps_reference(_t(B0), u, b16, order, icmiter=2, variant="v2")
+    before = dict(icm_kernels.icm_sweeps_step.launches)
+    for table in (b16, binaries_to_j_stacked(b16)):
+        got = icm_kernels.icm_sweeps_step(_t(B0), u, table, order, icmiter=2, step=step)
+        np.testing.assert_array_equal(got.numpy(), want.numpy())
+    assert icm_kernels.icm_sweeps_step.launches == before  # no kernel on the CPU
+    with pytest.raises(ValueError, match="step"):
+        icm_kernels.icm_sweeps_step(_t(B0), u, b16, order, icmiter=2, step="ahead")
+
+
 def test_sweeps_variants_agree_with_gather_sweeps_on_integer_tables():
     """On exact tables both variants are the gather sweeps of icm.py: the
     orders of summation differ, the sums do not."""

@@ -20,6 +20,7 @@ from local_search_quantization_torch.ops import luts as tluts
 from local_search_quantization_torch.ops.icm_kernels import (
     DISSECT_VARIANTS,
     binaries_to_j_stacked,
+    candidates_per_lane,
     icm_sweeps_dissect,
     icm_sweeps_dissect_reference,
 )
@@ -110,21 +111,28 @@ def test_noargmin_and_mmonly_codes_and_score_sums(variant, h):
 
 
 def test_sink_sums_in_the_kernels_lane_order():
-    """h=40, one scoring visit: lane 0 adds candidates 0 and 32, lanes 1-31
-    candidates l (and l + 32 < 40, which score 0), then the xor butterfly.
-    Scores 2^24 at candidate 0 and 1 up to 32: lane 0's 2^24 swallows its own +1 and lane 16's
-    (2^24 + 1 rounds back to 2^24 in f32), and the other lanes arrive as 2,
-    4, 8 and 16: 2^24 + 30, where the sum in candidate order gives 2^24 + 32
-    or 2^24."""
+    """h=40, one scoring visit: two candidates a lane, lane l adds candidates
+    2l and 2l + 1 (lanes 20-31 hold none), then the xor butterfly. Scores
+    2^24 at candidate 0 and 1 at every other: lane 0's 2^24 swallows its own
+    +1 (2^24 + 1 rounds back to 2^24 in f32), lanes 1-19 hold 2 each, and
+    they reach lane 0 as 2, 2, 4, 10 and 20: 2^24 + 38, where the sum in
+    candidate order stays at 2^24 and the strided lane map (lane l adding
+    l and l + 32) gives 2^24 + 30."""
     m, h = 2, 40
     u = torch.zeros((1, m, h))
-    u[0, 0, :33] = 1.0  # candidates 1-31 and 32; 33-39 score 0
+    u[0, 0, :] = 1.0
     u[0, 0, 0] = 2.0 ** 24
     b = torch.zeros((m, m, h, h), dtype=torch.bfloat16)
     order = torch.tensor([0, 1], dtype=torch.int32)  # visit 1 scores only zeros
     _, sink = icm_sweeps_dissect_reference(torch.zeros((1, m), dtype=torch.int32), u, b,
                                            order, icmiter=1, variant="mmonly")
-    assert float(sink[0]) == 2.0 ** 24 + 30
+    assert float(sink[0]) == 2.0 ** 24 + 38
+
+
+@pytest.mark.parametrize("h,cpl", [(1, 1), (32, 1), (33, 2), (40, 2), (64, 2), (65, 4),
+                                   (256, 8), (300, 16), (512, 16), (513, 32), (1024, 32)])
+def test_candidates_per_lane_follows_the_kernels_dispatch(h, cpl):
+    assert candidates_per_lane(h) == cpl
 
 
 def test_j_stacked_table_gives_the_same_results():

@@ -27,7 +27,6 @@ from local_search_quantization_torch.ops.icm_kernels import (
 from local_search_quantization_torch.ops import l2_probe
 from local_search_quantization_torch.ops import select_kernels as sk
 from local_search_quantization_torch.ops.select_kernels import (
-    _k3_smem_bytes,
     fused_scan_topk,
     scan_key,
     scan_key_reference,
@@ -171,8 +170,12 @@ def _sweeps_inputs(dev, n, d, m, h, integer, seed=0):
     (4096, 32, 7, 256, 2, True),
     (3001, 16, 4, 20, 3, False),  # h < 32: idle lanes; ragged last block
     (2048, 64, 8, 256, 4, False),
-    (1024, 16, 3, 300, 2, False),  # h > 256: 16 candidates per lane
+    (1024, 16, 3, 300, 2, False),  # h > 256: 16 candidates per lane, element-wise loads
     (512, 8, 1, 64, 2, False),  # m = 1: no pair terms
+    (2048, 16, 5, 40, 3, False),  # h no multiple of 32: two a lane, lanes 20-31 idle
+    (2048, 16, 4, 512, 2, False),  # 16 a lane: two 16-byte loads a row
+    (1024, 16, 10, 256, 2, False),  # m - 1 = 9 rows a visit: two chunks of row loads
+    (512, 8, 2, 1000, 2, False),  # 32 a lane, a masked tail
 ])
 def test_icm_sweeps_kernels_match_plain_version(cuda, variant, shape):
     n, d, m, h, icmiter, integer = shape
@@ -184,6 +187,24 @@ def test_icm_sweeps_kernels_match_plain_version(cuda, variant, shape):
     assert got.dtype == torch.int32
     torch.testing.assert_close(got, want, rtol=0, atol=0)
     assert (got != args[0]).any()
+
+
+@pytest.mark.parametrize("shape", [(4096, 32, 7, 256, 2, True), (2048, 16, 4, 136, 3, False)])
+def test_k5_stages_give_k5s_codes(cuda, shape):
+    """Every stage of K5's redesign (the first port's visit, its loads
+    hoisted, the packed kernel) gives K5's codes, one launch each."""
+    from local_search_quantization_torch.ops.icm_kernels import SWEEP_STEPS, icm_sweeps_step
+
+    n, d, m, h, icmiter, integer = shape
+    args = _sweeps_inputs(cuda, n, d, m, h, integer)
+    want = fused_icm_sweeps_reference(*args, icmiter=icmiter, variant="v2")
+    for step in SWEEP_STEPS:
+        before = icm_sweeps_step.launches[step]
+        got = icm_sweeps_step(*args, icmiter=icmiter, step=step)
+        assert icm_sweeps_step.launches[step] == before + 1
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+    with pytest.raises(ValueError):  # eight candidates a lane only
+        icm_sweeps_step(*_sweeps_inputs(cuda, 64, 8, 3, 64, True), icmiter=1, step="packed")
 
 
 def test_fused_ils_encode_on_the_card_runs_k5_every_round(cuda):
@@ -237,6 +258,8 @@ def test_icm_sweeps_wrapper_rejects_bad_inputs(cuda):
     (4096, 32, 7, 256, 2, True),
     (3001, 16, 4, 20, 3, False),  # h < 32: idle lanes; ragged last block
     (1024, 16, 3, 300, 2, False),  # h > 256: 16 candidates per lane
+    (2048, 16, 5, 40, 2, False),  # two candidates a lane: the sink's lane order
+    (1024, 16, 4, 512, 2, False),  # 16 a lane by vector loads
 ])
 def test_k7_matches_plain_version(cuda, variant, shape):
     """Codes identical; the sink identical for "nowrite", within 1e-5 of the
@@ -292,6 +315,11 @@ def _kth_t0(lut, Bt, extra, rank):
     (70_000, 3, 4, 16, 1000, 0, False),      # small h: huge tie blocks
     (300_000, 4, 7, 256, 10_000, 1000, True),  # the deep-k buffer
     (3000, 2, 3, 300, 500, 0, False),        # int32 codes only (h > 256)
+    (100_003, 1, 7, 256, 111, 0, False),     # nq = 1; n no multiple of 16: scalar staging
+    (100_003, 32, 7, 256, 111, 50, True),    # 16 queries a block, two groups
+    (150_000, 17, 7, 256, 1000, 0, False),   # a partial group; a ragged last tile
+    (1_000, 3, 7, 256, 2000, 0, False),      # k > n: one short segment
+    (40_000, 5, 16, 256, 300, 0, False),     # m = 16: fewer queries a block
 ])
 def test_k3_kernel_matches_plain_version(cuda, n, nq, m, h, k, n_inf, warm):
     """K3 against its plain version: "sorted" identical, and identical to K2
@@ -310,7 +338,7 @@ def test_k3_kernel_matches_plain_version(cuda, n, nq, m, h, k, n_inf, warm):
         torch.testing.assert_close(d, want_d[:, :kk], rtol=0, atol=0)
         torch.testing.assert_close(i, want_i[:, :kk], rtol=0, atol=0)
         k2_d, k2_i = fused_scan_topk(lut, Bc, extra, k=k, t0=t0, variant="grouped")
-        assert torch.equal(k2_d, d) and torch.equal(k2_i, i)
+        assert torch.equal(k2_d[:, :kk], d) and torch.equal(k2_i[:, :kk], i)
         ud, ui = scan_select(lut, Bc, extra, k, t0, unsorted=True)
         torch.testing.assert_close(ud, want_d[:, :kk], rtol=0, atol=0)
         if kk < want_d.shape[1]:
@@ -400,15 +428,20 @@ def test_select_kernel_fits_mirrors_the_library(cuda):
         for h in (16, 256, 1024, 2048):
             assert scan_topk_fits(m, h) == (k2.lsq_scan_smem_bytes(m, h) <= 227 * 1024)
     lib = _build.load("scan_select")
-    lib.lsq_select_smem_bytes.argtypes = [ctypes.c_int] * 3
-    assert lib.lsq_select_tile() == 2048
+    lib.lsq_select_cap_keys.argtypes = [ctypes.c_int] * 4
+    lib.lsq_select_step.argtypes = [ctypes.c_int]
+    assert lib.lsq_select_rows_unit() == sk._K3_ROWS_UNIT
+    for g in (16, 8, 4, 2):
+        assert lib.lsq_select_step(g) == sk.k3_step(g)
     for m in (1, 4, 7, 8, 16):
-        for h in (16, 256, 300, 1024):
+        for h in (16, 255, 256, 300, 1024):
+            for code_bytes in (1, 4):
+                caps = {g: lib.lsq_select_cap_keys(m, h, code_bytes, g) for g in (16, 8, 4, 2)}
+                assert caps == {g: sk.k3_cap_keys(m, h, code_bytes, g) for g in caps}
             for k in (1, 100, 1000, 5000, 10_000, 12_000, 14_000):
-                cap = select_cap(k)
-                assert _k3_smem_bytes(m, h, cap) == lib.lsq_select_smem_bytes(m, h, cap)
-                lib_fits = lib.lsq_select_smem_bytes(m, h, cap) <= lib.lsq_select_smem_limit()
-                assert select_kernel_fits(k, m, h) == lib_fits, (m, h, k)
+                need = select_cap(k) + sk.k3_step(2) + 64
+                assert select_kernel_fits(k, m, h) == (
+                    lib.lsq_select_cap_keys(m, h, 4, 2) >= need), (m, h, k)
 
 
 def test_select_wrappers_reject_bad_inputs(cuda):

@@ -202,8 +202,11 @@ def test_select_variant_rule_and_override(monkeypatch):
 def test_select_kernel_fits_and_caps():
     assert sk.select_cap(1) == 128 and sk.select_cap(1000) == 1024
     assert sk.select_cap(10_000) == 10_112
-    # K3's buffer at m=7, h=256: 7 KB of LUT + 8 bytes x (2 cap + one tile).
-    assert sk._k3_smem_bytes(7, 256, 1024) == 7168 + 8 * (2048 + 2048)
+    # K3's buffers at m=7, h=256, uint8 codes, 16 queries a block: what 227 KB
+    # leave beside 112 KB of LUTs, two tiles of 512 rows x 11 bytes, 16
+    # histograms, counts and thresholds and 1 KB reserved, in 8-byte keys a query.
+    assert sk.k3_cap_keys(7, 256, 1, 16) == (
+        227 * 1024 - 16 * 7168 - 2 * 512 * 11 - 16 * 1032 - 1024) // (8 * 16) == 695
     assert sk.select_kernel_fits(10_000, 7, 256)
     assert not sk.select_kernel_fits(14_000, 7, 256)
     assert not sk.select_kernel_fits(1000, 16, 4096)
@@ -224,3 +227,104 @@ def test_wrappers_take_the_plain_version_on_the_cpu_only():
     with pytest.raises(ValueError, match="unsupported device"):
         sk.scan_key(_t(luts).to("meta"), _t(B.T).to("meta"), None,
                     torch.zeros((NQ, 1), device="meta"), 64)
+
+
+def test_k3_geometry_follows_what_fits():
+    """The queries a K3 block serves fall as `keep` grows: a buffer holds
+    keep keys, one step's appends and room for keep/8 more (64 at least)."""
+    assert [sk.k3_step(g) for g in (16, 8, 4, 2)] == [512, 1024, 1024, 1024]
+    assert sk.k3_geometry(7, 256, 1, 111) == (16, 695)   # the pre-scan at k=1000
+    assert sk.k3_geometry(7, 256, 4, 111)[0] == 8        # int32 codes: 16 KB tiles
+    assert sk.k3_geometry(7, 256, 1, 777)[0] == 8        # the pre-scan at k=10001
+    assert sk.k3_geometry(7, 256, 1, 1000)[0] == 8 == sk.k3_geometry(7, 256, 1, 1024)[0]
+    assert sk.k3_geometry(7, 256, 4, 1000)[0] == 4
+    assert sk.k3_geometry(7, 256, 1, 10_112)[0] == 2 == sk.k3_geometry(7, 256, 4, 10_112)[0]
+    assert sk.k3_geometry(7, 256, 1, 12_000) == (0, 0)
+    assert sk.k3_geometry(16, 4096, 1, 100) == (0, 0)    # the LUTs alone do not fit
+    for m, h, cb, keep in [(7, 256, 1, 111), (7, 256, 4, 1024), (8, 256, 1, 5000),
+                           (4, 16, 1, 10_112), (16, 256, 4, 300), (32, 1024, 1, 10)]:
+        g, cap = sk.k3_geometry(m, h, cb, keep)
+        if g:
+            assert cap == sk.k3_cap_keys(m, h, cb, g) >= keep + sk.k3_step(g) + 64
+            assert 8 * g * cap <= 227 * 1024
+        bigger = [x for x in (16, 8, 4, 2) if x > g]
+        assert all(sk.k3_cap_keys(m, h, cb, x) < keep + sk.k3_step(x) + max(64, keep // 8)
+                   for x in bigger)
+    assert sk.select_kernel_fits(1000, 7, 256) and not sk.select_kernel_fits(12_000, 7, 256)
+
+
+@pytest.mark.parametrize("n,nq,g,sms,keep,want", [
+    (62_500, 1000, 16, 132, 111, (2, 31_744)),     # the pre-scan: 63 groups x 2, one wave
+    (62_500, 1, 16, 132, 111, (31, 2048)),         # one query: spread, 3441 candidates merged
+    (62_500, 32, 8, 132, 777, (5, 13_312)),        # the merge's fast width bounds the split
+    (1_000_000, 1000, 8, 132, 1000, (1, 1_000_448)),  # 125 groups fill the card: no split
+    (1_000_000, 32, 8, 132, 1000, (17, 59_392)),
+    (1_000_000, 1, 8, 132, 1000, (98, 10_240)),    # one query over most of the card
+    (1_000_000, 1, 2, 132, 10_112, (28, 35_840)),  # deep k: a wide merge either way
+    (1000, 2, 16, 132, 5, (1, 1024)),
+    (1025, 1, 2, 4, 10, (2, 1024)),
+])
+def test_k3_segments_fill_the_card(n, nq, g, sms, keep, want):
+    segments, rows = sk.k3_segments(n, nq, g, sms, keep)
+    assert (segments, rows) == want
+    assert rows % 1024 == 0 and (segments - 1) * rows < n <= segments * rows
+    groups = -(-nq // g)
+    assert segments * groups <= max(groups, 2 * sms + groups)
+
+
+def _segmented(luts, B, extra, k, t0, rows, keep=None):
+    """K3's control flow on the CPU: the per-segment plain version, then the
+    merge."""
+    keep = k if keep is None else keep
+    seg = sk.scan_select_segments_reference(
+        _t(luts), _t(B.T.astype(np.uint8)), None if extra is None else _t(extra), keep,
+        None if t0 is None else _t(t0), rows)
+    assert seg[0].shape == (luts.shape[0], -(-B.shape[0] // rows), keep)
+    return sk.merge_segments(*seg, k)
+
+
+@pytest.mark.parametrize("case", [
+    # (n, n_inf, k, t0 rank or None or "tight", rows a segment, nq)
+    (4096, 0, 64, None, 1024, NQ),       # ties across segment boundaries
+    (4096, 300, 64, 40, 1024, NQ),       # fewer rows below t0 than k; +inf rows
+    (4096, 4000, 150, None, 512, NQ),    # fewer finite rows than k
+    (3000, 0, 700, None, 512, NQ),       # keep > a segment's rows; ragged last segment
+    (4096, 0, 64, None, 256, 1),         # nq = 1
+    (4096, 50, 64, "tight", 1024, NQ),   # t0 below every distance: nothing kept
+])
+def test_k3_segment_merge_matches_reference_and_pallas(case):
+    """The segments' top-keeps merged are the top-keep of all rows: identical
+    to `scan_select_reference` and to the Pallas `_select_kernel` ("sorted")
+    in interpret mode, on integer LUTs where ties are common."""
+    n, n_inf, k, rank, rows, nq = case
+    luts, B, extra, full = _case(n=n, n_inf=n_inf, seed=n + k)
+    luts, full = luts[:nq], full[:nq]
+    if rank == "tight":
+        t0 = np.full((nq, 1), full.min() - 1, np.float32)
+    else:
+        t0 = None if rank is None else full[:, rank - 1:rank].copy()
+    want = sk.scan_select_reference(_t(luts), _t(B.T.astype(np.uint8)), _t(extra), k,
+                                    None if t0 is None else _t(t0))
+    got = _segmented(luts, B, extra, k, t0, rows)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    jd, ji = sp.fused_scan_topk(jnp.asarray(luts), jnp.asarray(B.T), jnp.asarray(extra),
+                                tb=1024, interpret=True, k=k, variant="sorted",
+                                t0=None if t0 is None else jnp.asarray(t0))
+    np.testing.assert_array_equal(got[0].numpy(), np.asarray(jd))
+    np.testing.assert_array_equal(got[1].numpy(), np.asarray(ji))
+    assert (full[:, 1:] == full[:, :-1]).any()
+    if rank == "tight":
+        assert torch.isinf(got[0]).all() and (got[1] == -1).all()
+
+
+def test_k3_segment_merge_of_a_wider_keep_is_value_exact():
+    """ "unsorted": segments keep `select_cap(k)` rows each; the first k of the
+    merge are the k smallest distances, and its ids are the reference's
+    wherever the k-th value is not tied with the next. No extra term."""
+    luts, B, _, _ = _case(seed=9)
+    k, keep = 100, sk.select_cap(100)
+    want = sk.scan_select_reference(_t(luts), _t(B.T), None, k + 1)
+    got = _segmented(luts, B, None, k, None, 1024, keep=keep)
+    assert torch.equal(got[0], want[0][:, :k])
+    cert = want[0][:, k - 1] < want[0][:, k]
+    assert torch.equal(got[1][cert], want[1][cert, :k])
