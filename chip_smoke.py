@@ -58,8 +58,15 @@ nothing of JAX. Phases:
    at each nq, the pre-scan's, the bytes its design reads from L2, and peak
    device memory beside K2's;
 3c. K4 (the key append) on the same inputs with the warm t0: appended id
-   sets and counts identical to the plain version; the key variant's
-   certificate clear and its (d, i) identical to K2's;
+   sets and counts identical to the plain version at nq 1, 32 and 1000 on
+   uint8 and int32 codes, on a base of 300,007 rows, at m=5, h=40, and with
+   a cap that overflows (counts identical, the ids `cap` distinct hits);
+   the key variant's per-query certificate, its certified queries identical
+   to K2's and `scan_topk_warm` (which reruns the others on K3) identical
+   on all; its times at each nq beside the first port's and beside the
+   shared-memory bytes its lookups must read; and the width of the
+   shared-memory loads in its SASS (cuobjdump): the table lookups must be
+   8- or 16-byte loads;
 4. main path A through `demos/demo_lsq_torch.py`'s functions on the
    synthetic SIFT-statistics corpus (100k train, 1M base, 1000 queries):
    OPQ -> ChainQ -> LSQ training (m=7, h=256, niter=10, ilsiter=8) with
@@ -69,13 +76,18 @@ nothing of JAX. Phases:
    condition_mode "fused" (K5 in every ILS round), the base encoded with
    "fused", then norms, query and recall as in path A.
 4c. main path C, the serving path: `Index.build("lsq", refine="sq8")` on
-   the same corpus, `save` and `Index.load` (codes and model identical),
-   then `search` at k=1000 on every route: the default (K2), the select
-   variants "sorted" and "unsorted" (K3, warm; "unsorted" with the widen)
-   and "key" (K4, its pre-scan on K3), the tournament in store and in
-   recompute mode, and "exact"; precision "bf16" on the default, sorted and
-   exact routes; k=10000 on K2, the tournament and K3; refine; then delete,
-   add and compact.
+   the same corpus, `build_ivf(nlist=1024)`, `save` and `Index.load` (codes,
+   model and partition identical), then `search` at k=1000 on every route:
+   the default (K2), the select variants "sorted" and "unsorted" (K3, warm;
+   "unsorted" with the widen) and "key" (K4, its pre-scan on K3, the
+   queries that fail its certificate rerun on K3), the tournament in store
+   and in recompute mode, and "exact"; precision "bf16" on the default,
+   sorted and exact routes; k=10000 on K2, the tournament and K3; refine;
+   `search(nprobe=p)` for p = 1, 8, 32 and 1024 (each p's ms, qps, recall
+   and peak memory; at p = 1024 the default route's distances and ids;
+   recall@10 never falling as p grows; no pad row returned); then delete
+   (no probed search returns a deleted id), add (the new rows found through
+   the tail) and compact (the full probe still the exhaustive search).
    The counters over `Index.build` plus one 1000-query search at k=1000
    are printed as the main path's launches.
    In each path the kernels' launch counters are zeroed just before it and
@@ -134,10 +146,11 @@ MAIN = dict(ntrain=100_000, nbase=1_000_000, nquery=1000, niter=10, ilsiter_base
 # outside the tensor cores, and device memory. The f32 rate counts an FMA as
 # two operations; the scans' adds and compares are one each and issue at
 # half of it, so their "operations" bounds are half what the card can reach.
-# Shared memory issues one 32-lane lookup an SM a clock: 132 SMs at the
-# 1.98 GHz boost clock.
+# Shared memory issues one 32-lane lookup an SM a clock, 128 bytes: 132 SMs
+# at the 1.98 GHz boost clock.
 PEAK_F32, HBM = 67e12, 3.35e12
 SMEM_LOOKUPS = 132 * 32 * 1.98e9
+SMEM_BYTES = 132 * 128 * 1.98e9
 
 
 def roofline_ms(ops: float, nbytes: float):
@@ -856,72 +869,212 @@ def phase_k3(torch, inputs, l2_rate):
             t0, cap)
 
 
-def check_key(torch, label, luts, Bt, extra, t0, cap, k2_out):
-    """K4's appended ids and counts against its plain version, then the key
-    variant (re-rank, sort, certificate) against K2: identical when
-    certified; when not, the exact fallback of `scan_topk_warm` must be.
-    Returns (certified, max |d - K2's d| over the certified output)."""
+def check_k4_appends(torch, label, luts, Bt, extra, t0, cap):
+    """K4's appended ids and counts against its plain version: counts
+    identical; per query the sorted ids identical where the list did not
+    overflow, else `cap` distinct ids out of the plain version's full list.
+    Returns the number of queries that overflowed."""
     from local_search_quantization_torch.ops import select_kernels as sk
 
     ids, count = sk.scan_key(luts, Bt, extra, t0, cap)
     want_ids, want_count = sk.scan_key_reference(luts, Bt, extra, t0, cap)
     torch.cuda.synchronize()
     same_count = torch.equal(count, want_count)
-    same_ids = torch.equal(torch.sort(ids, dim=1)[0], torch.sort(want_ids, dim=1)[0])
+    over = count > cap
+    filled = torch.arange(cap, device=ids.device)[None, :] < count.clamp(max=cap)[:, None]
+    tail_empty = bool((ids[~filled] == -1).all())
+    got = torch.sort(torch.where(filled, ids, -1), dim=1)[0]
+    same_ids = torch.equal(got[~over], torch.sort(want_ids, dim=1)[0][~over])
+    subset = True
+    if bool(over.any()):
+        # Every hit of the overflowed queries (a cap no list can fill), sorted.
+        rows = torch.nonzero(over)[:, 0]
+        every, _ = sk.scan_key_reference(luts[rows], Bt, extra, t0[rows],
+                                         int(count.max()))
+        every = torch.where(every < 0, 2 ** 31 - 1, every)  # ascending throughout
+        g = got[rows]
+        at = torch.searchsorted(every.long().contiguous(), g.long().contiguous())
+        found = torch.gather(every, 1, at.clamp(max=every.shape[1] - 1)) == g
+        distinct = (g[:, 1:] != g[:, :-1]).all()
+        subset = bool(found.all() and distinct)
     print(f"K4 {label}: cap {cap}, appended per query min/mean/max "
           f"{int(count.min())}/{float(count.float().mean()):.1f}/{int(count.max())}, "
-          f"counts identical {same_count}, id sets identical {same_ids}")
-    check(same_count and same_ids and bool((count < cap).all()),
-          f"K4 {label}: disagrees with its plain version (or overflowed)")
-    d, i, bad = sk.fused_scan_topk(luts, Bt, extra, k=K, t0=t0, variant="key",
-                                   append_cap=cap)
-    # The certificate's two sides: d[k-1] must sit below T_hi - err.
-    t0k = (sk._f32_to_key(t0) & sk._KEY_MASK) - ((1 << sk._LANE_BITS) - 1)
-    room = sk._key_to_f32(t0k)[:, 0] - d[:, K - 1]
-    err = ((2.0 ** -9 + 2.0 ** -16) * luts.abs().amax(dim=2).sum(dim=1)
-           + 2.0 ** -23 * extra[torch.isfinite(extra)].abs().max())
-    ok = room > err
-    print(f"K4 {label} key variant: certificate bad={bool(bad)}; T_hi - d[k-1] "
-          f"median {float(room.median()):.4g}, error bound median "
-          f"{float(err.median()):.4g}; {int(ok.sum())} of {ok.numel()} queries clear")
-    if bool(bad):
-        d, i = sk.scan_topk_warm(luts, Bt, extra, k=K, variant="key")
-        print(f"K4 {label}: not certified; scan_topk_warm's exact fallback "
-              f"identical to K2 {torch.equal(d, k2_out[0]) and torch.equal(i, k2_out[1])}")
-    same_k2 = torch.equal(d, k2_out[0]) and torch.equal(i, k2_out[1])
-    check(same_k2, f"K4 {label}: the key variant's answer is not K2's")
-    if not bool(bad):
-        print(f"K4 {label} key variant: certified, (d, i) identical to K2 {same_k2}")
-    return not bool(bad), float(torch.nan_to_num((d - k2_out[0]).abs(), posinf=0.0).max())
+          f"counts identical {same_count}, id sets identical on {int((~over).sum())} "
+          f"queries {same_ids}; {int(over.sum())} overflowed, their ids {cap} distinct "
+          f"hits: {subset}")
+    check(same_count and same_ids and subset and tail_empty,
+          f"K4 {label}: disagrees with its plain version")
+    return int(over.sum())
+
+
+def check_key(torch, label, luts, Bt, extra, t0, cap, k2_out):
+    """K4's appended ids and counts against its plain version, then the key
+    variant (re-rank, sort, per-query certificate) against K2: every
+    certified query identical; `scan_topk_warm` (which reruns the others on
+    K3) identical on all. Returns (queries certified, max |d - K2's d|)."""
+    from local_search_quantization_torch.ops import select_kernels as sk
+
+    check(check_k4_appends(torch, label, luts, Bt, extra, t0, cap) == 0,
+          f"K4 {label}: the warm bound's list overflowed")
+    d, i, bad = sk._key_scan_topk(luts, Bt, extra, K, t0, cap)
+    _, _, any_bad = sk.fused_scan_topk(luts, Bt, extra, k=K, t0=t0, variant="key",
+                                       append_cap=cap)
+    ok = ~bad
+    same_ok = torch.equal(d[ok], k2_out[0][ok]) and torch.equal(i[ok], k2_out[1][ok])
+    launches = sk.scan_select.launches
+    fd, fi = sk.scan_topk_warm(luts, Bt, extra, k=K, variant="key")
+    same_all = torch.equal(fd, k2_out[0]) and torch.equal(fi, k2_out[1])
+    print(f"K4 {label} key variant: {int(ok.sum())} of {ok.numel()} queries certified, "
+          f"identical to K2 {same_ok}; scan_topk_warm (the other {int(bad.sum())} rerun "
+          f"on K3, {sk.scan_select.launches - launches} K3 launches with the pre-scan) "
+          f"identical to K2 on all {same_all}")
+    check(same_ok and same_all and bool(any_bad) == bool(bad.any()),
+          f"K4 {label}: the key variant's answer is not K2's")
+    return int(ok.sum()), float(torch.nan_to_num((fd - k2_out[0]).abs(), posinf=0.0).max())
+
+
+# K4's kernel template in a mangled name: <code type, G, kQ, kR>, the code
+# type h (unsigned char) or i (int).
+K4_KERNEL = r"scan_keyI([hi])Li(\d+)ELi(\d+)ELi(\d+)EE"
+# K4 before its redesign, cited beside the new time (it is not built any
+# more): this script's run at the commit before the redesign, on one H100
+# 80GB HBM3 at 700.00 W.
+K4_FIRST_PORT_MS = 2.791
+
+
+def k4_sass(geometry) -> dict:
+    """The shared-memory loads in the SASS of K4's kernels of `geometry`
+    (g, kq, kr), read with cuobjdump from the built library: {code type:
+    {load width in bits: count}}. The placeholders that ptxas puts before a
+    cp.async (`@!PT LDS RZ, [RZ]`) load nothing and are not counted."""
+    import re
+    import shutil
+
+    from local_search_quantization_torch import _build
+
+    tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    if not os.path.exists(tool):
+        tool = shutil.which("cuobjdump")
+    check(tool is not None, "cuobjdump not found beside nvcc or on PATH: K4's SASS "
+          "cannot be read")
+    sass = subprocess.run([tool, "-sass", _build._paths("scan_key")[1]],
+                          capture_output=True, text=True, timeout=120).stdout
+    out, cur = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            head = re.search(K4_KERNEL, line)
+            cur = None
+            if head and tuple(int(x) for x in head.groups()[1:]) == tuple(geometry):
+                cur = out.setdefault(head.group(1), {})
+        elif cur is not None and "@!PT" not in line:
+            load = re.search(r"\bLDS(?:\.U?(\d+))?\b", line)
+            if load:
+                width = int(load.group(1) or 32)
+                cur[width] = cur.get(width, 0) + 1
+    return out
 
 
 def phase_k4(torch, inputs, t0, cap):
     """K4 against its plain version, and the key variant against K2: on K2's
-    inputs (the LSQ tables) and on tables with unit-normal entries over the
-    same codes, where the certificate's bf16 bound is small beside the
-    distances' spread."""
+    inputs (the LSQ tables) at nq 1, 32 and 1000 with uint8 and int32 codes,
+    on a base of 300,007 rows (ragged tiles, element-wise staging), at m=5,
+    h=40 and with a cap small enough to overflow; on tables with unit-normal
+    entries over the same codes, where the certificate's bf16 bound is small
+    beside the distances' spread; then its times, and the width of the
+    shared-memory loads of the kernels that ran."""
     from local_search_quantization_torch.ops import select_kernels as sk
 
     luts, Bt, extra, k2_out = inputs
+    dev = luts.device
+    Bt32 = Bt.to(torch.int32)
     _, err = check_key(torch, "LSQ tables", luts, Bt, extra, t0, cap, k2_out)
-    gen = torch.Generator(device=luts.device).manual_seed(17)
-    normal = torch.randn(luts.shape, generator=gen, device=luts.device)
+    for nq in (K2_QUERIES, 32, 1):
+        for name, codes in (("uint8", Bt), ("int32", Bt32)):
+            check_k4_appends(torch, f"nq={nq}, {name} codes", luts[:nq].contiguous(), codes,
+                             extra, t0[:nq].contiguous(), cap)
+    n2 = 300_007
+    Br, er, lr = Bt[:, :n2].contiguous(), extra[:n2].contiguous(), luts[:32].contiguous()
+    tr, capr = sk.warm_bound(lr, Br, er, k=K)
+    for name, codes in (("uint8", Br), ("int32", Br.to(torch.int32))):
+        check_k4_appends(torch, f"nq=32, n={n2} (no multiple of 16), {name} codes", lr,
+                         codes, er, tr, capr)
+    over = check_k4_appends(torch, "nq=1000, cap 1024 (overflow)", luts, Bt, extra, t0, 1024)
+    check(over > 0, "K4: a cap of 1024 did not overflow at the warm bound")
+    gen = torch.Generator(device=dev).manual_seed(17)
+    l40 = torch.randn((33, 5, 40), generator=gen, device=dev)
+    B40 = torch.randint(0, 40, (5, 200_001), generator=gen, device=dev, dtype=torch.int32)
+    t40, cap40 = sk.warm_bound(l40, B40, None, k=K)
+    for name, codes in (("uint8", B40.to(torch.uint8)), ("int32", B40)):
+        check_k4_appends(torch, f"m=5, h=40, nq=33, n=200001, {name} codes", l40, codes,
+                         torch.zeros(200_001, device=dev), t40, cap40)
+    normal = torch.randn(luts.shape, generator=gen, device=dev)
     zero = torch.zeros_like(extra)
     normal_k2 = sk.scan_topk(normal, Bt, zero, K)
     nt0, ncap = sk.warm_bound(normal, Bt, zero, k=K)
     certified, nerr = check_key(torch, "unit-normal tables", normal, Bt, zero, nt0,
                                 ncap, normal_k2)
-    check(certified, "K4: the key variant's certificate failed on unit-normal tables")
+    check(certified == K2_QUERIES,
+          "K4: the key variant's certificate failed on unit-normal tables")
     err = max(err, nerr)
-    ms = cuda_ms(torch, lambda: sk.scan_key(luts, Bt, extra, t0, cap), 5)
+    times = {}
+    for nq in (1, 32, K2_QUERIES):
+        lq, tq = luts[:nq].contiguous(), t0[:nq].contiguous()
+        times[nq] = {name: cuda_ms(torch, lambda c=codes: sk.scan_key(lq, c, extra, tq, cap), 5)
+                     for name, codes in (("uint8", Bt), ("int32", Bt32))}
+        geo = sk.k4_geometry(M, H, 1, nq)
+        print(f"[{CARD}] K4 time at nq={nq} x {K2_N}, cap {cap} ({geo[0]} queries a block, "
+              f"{geo[1]} a lane, {geo[2]} rows a lane, tiles of "
+              f"{sk.k4_tile_steps(M, H, 1, *geo)} steps with uint8 and "
+              f"{sk.k4_tile_steps(M, H, 4, *geo)} with int32 codes): uint8 codes "
+              f"{times[nq]['uint8']:.3f} ms, int32 codes {times[nq]['int32']:.3f} ms")
+    ms = times[K2_QUERIES]["uint8"]
+    # What the choices measure, on uint8 codes at nq=1000: the tile length
+    # (the cap on `k4_tile_steps` set for the call), and a bound that no row
+    # passes (the scan alone, without an append).
+    geo = sk.k4_geometry(M, H, 1, K2_QUERIES)
+    by_steps, most = {}, sk._K4_MAX_TILE_STEPS
+    try:
+        for st in (1, 2, 4):
+            sk._K4_MAX_TILE_STEPS = st
+            by_steps[st] = cuda_ms(torch, lambda: sk.scan_key(luts, Bt, extra, t0, cap), 5)
+    finally:
+        sk._K4_MAX_TILE_STEPS = most
+    never = torch.full_like(t0, -1e30)
+    no_hit = cuda_ms(torch, lambda: sk.scan_key(luts, Bt, extra, never, cap), 5)
+    prep = cuda_ms(torch, lambda: sk.k4_interleave(luts, geo[0]), 5)
+    print(f"[{CARD}] K4 at nq={K2_QUERIES} x {K2_N}, {geo} (queries a block, queries a "
+          "lane, rows a lane), ms with tiles of 1 / 2 / 4 steps: "
+          + " / ".join(f"{by_steps[st]:.3f}" for st in (1, 2, 4))
+          + f"; with a bound no row passes {no_hit:.3f}; rounding and interleaving the "
+          f"tables alone {prep:.3f}")
     full = cuda_ms(torch, lambda: sk.fused_scan_topk(
         luts, Bt, extra, k=K, t0=t0, variant="key", append_cap=cap), 5)
     plain = cuda_ms(torch, lambda: sk.scan_key_reference(luts, Bt, extra, t0, cap), 2)
-    print(f"[{CARD}] K4 time for {K2_QUERIES} queries x {K2_N}: kernel {ms:.3f} ms, "
-          f"kernel + re-rank + sort + certificate {full:.3f} ms, plain {plain:.3f} ms")
+    # The shared-memory bytes K4 must read: m entries of 2 bytes a (query, row).
+    smem_ms = K2_QUERIES * K2_N * M * 2 / SMEM_BYTES * 1e3
+    print(f"[{CARD}] K4 time for {K2_QUERIES} queries x {K2_N}: kernel {ms:.3f} ms (before "
+          f"its redesign {K4_FIRST_PORT_MS} ms, one H100 80GB HBM3 at 700.00 W, this "
+          f"script's run at the commit before), kernel + re-rank + sort + certificate "
+          f"{full:.3f} ms, "
+          f"plain {plain:.3f} ms; practical bound {smem_ms:.4f} ms (the table entries' "
+          f"{K2_QUERIES * K2_N * M * 2 / 1e9:.1f} GB of shared memory at 128 bytes an SM a "
+          f"clock): {smem_ms / ms:.0%} of it")
+    sass = k4_sass(geo)
+    wide = 16 * geo[1]  # kQ bf16 entries a load
+    print(f"K4 {geo}: shared-memory loads in the SASS, by width in bits: uint8 codes "
+          f"{sass.get('h')}, int32 codes {sass.get('i')}; the lookups are {wide}-bit loads")
+    # A lane loads the codes of its kR rows at once (16 bits for 2 byte codes)
+    # and then makes kR lookups: lookups that fell back to 2-byte loads would
+    # show kQ narrow loads for every wide one.
+    for code in ("h", "i"):
+        loads = sass.get(code, {})
+        narrow = loads.get(8, 0) + loads.get(16, 0)
+        check(loads.get(wide, 0) >= 4 and narrow * geo[2] <= loads.get(wide, 0),
+              f"K4 {geo} ({code}): expected its table lookups as {wide}-bit shared loads "
+              f"and 8- or 16-bit loads only for the codes, got {loads}")
     # bf16 LUTs in; [nq, cap] int32 ids and [nq] counts out.
-    return err, ms, plain, *scan_bound(K2_QUERIES, K2_N, cap + 1, 1, lut_bytes=2,
-                                       out_bytes=4)
+    return (err, ms, plain, *scan_bound(K2_QUERIES, K2_N, cap + 1, 1, lut_bytes=2,
+                                        out_bytes=4))
 
 
 def mrf_cost_chunked(torch, X, B, C):
@@ -1092,6 +1245,71 @@ def search_route(torch, idx, Q, k, env, method, precision="f32", refine=None):
         return res, time.perf_counter() - t0, dict(adc.RERUNS)
 
 
+IVF_NLIST = 1024
+
+
+def phase_ivf_routes(torch, idx, Q, gt, base):
+    """Path C's IVF steps: search(k, nprobe=p) for p = 1, 8, 32 and nlist, on
+    the partition that was built, saved and loaded. At p = nlist the
+    distances must be the default route's (`base`) on every query, and the
+    ids on every query whose k-th distance is not tied; recall@10 must not
+    fall as p grows; no pad row is returned."""
+    from local_search_quantization_torch.utils.eval import eval_recall
+
+    nq = Q.shape[0]
+    wide = idx.search(Q, k=K + 1).dists
+    untied = wide[:, K - 1] < wide[:, K]
+    recalls = []
+    for p in (1, 8, 32, IVF_NLIST):
+        if p < IVF_NLIST:
+            idx.search(Q, k=K, nprobe=p)  # the first run uploads the grouped store
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        res = idx.search(Q, k=K, nprobe=p)
+        torch.cuda.synchronize()
+        s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        rec = eval_recall(gt, res.ids.cpu().numpy(), K, verbose=False)
+        recalls.append(rec)
+        live = res.ids >= 0
+        print(f"[{CARD}] path C IVF nprobe={p:<5} k={K}: {s * 1e3:9.3f} ms, {nq / s:10.1f} "
+              f"qps, recall " + ", ".join(f"@{n} {rec[n - 1]:.4f}" for n in (1, 10, 100))
+              + f"; peak device memory {peak / 2**30:.3f} GiB, {(peak - held) / 2**30:.3f} "
+              f"GiB above what was held (the padded gather); slots filled "
+              f"{float(live.float().mean()):.4f}")
+        check(res.ids.dtype == torch.int64 and tuple(res.ids.shape) == (nq, K)
+              and bool((res.ids[live] < idx.n).all())
+              and bool(torch.isfinite(res.dists[live]).all())
+              and bool(torch.isinf(res.dists[~live]).all())
+              and bool((res.dists[:, 1:] >= res.dists[:, :-1]).all()),
+              f"path C IVF nprobe={p}: ids or dists malformed (a pad row, or not ascending)")
+    check(all(b[9] >= a[9] for a, b in zip(recalls, recalls[1:])),
+          f"path C IVF: recall@10 falls as nprobe grows: {[r[9] for r in recalls]}")
+    same_d = torch.equal(res.dists, base.dists)
+    same_i = torch.equal(res.ids[untied], base.ids[untied].long())
+    print(f"path C IVF nprobe={IVF_NLIST}: dists identical to the default route on all "
+          f"{nq} queries {same_d}; ids identical on the {int(untied.sum())} whose k-th "
+          f"distance is not tied {same_i}, on all {torch.equal(res.ids, base.ids.long())}")
+    check(same_d and same_i, "path C IVF: the full probe is not the exhaustive search")
+
+
+def check_ivf_mutations(torch, idx, Q, probe, gone, added):
+    """After delete and add: no probed search returns a tombstoned id, and a
+    row added after build_ivf is found through the tail at nprobe = 8."""
+    for p in (8, IVF_NLIST):
+        after = idx.search(Q[:1], k=K, nprobe=p)
+        check(not np.isin(after.ids.cpu().numpy(), gone).any(),
+              f"path C IVF nprobe={p}: a deleted id came back")
+    found = idx.search(probe, k=100, nprobe=8).ids.cpu().numpy()
+    hit = float(np.mean([i in row for i, row in zip(added[:1000], found)]))
+    print(f"path C IVF: after delete no probed search returns a deleted id; of 1000 rows "
+          f"added after build_ivf {hit:.4f} are found in their own top-100 at nprobe=8 "
+          f"(the tail of {idx.n - idx.ivf.n_grouped} rows, scanned through K2)")
+    check(hit >= 0.9, "path C IVF: rows added after build_ivf are not found through the tail")
+
+
 def phase_serving(torch, data, dev):
     """Path C: Index.build -> save -> load -> search on every route ->
     refine -> delete, add, compact. Returns its kernel launch counts."""
@@ -1112,6 +1330,14 @@ def phase_serving(torch, data, dev):
           f"ilsiter={MAIN['ilsiter_base']}, refine='sq8') of {x_base.shape[0]} rows in "
           f"{time.perf_counter() - t0:.3f} s, LSQ obj {float(built.model.obj[0]):.6e} -> "
           f"{float(built.model.obj[-1]):.6e}")
+    t0 = time.perf_counter()
+    built.build_ivf(nlist=IVF_NLIST)
+    torch.cuda.synchronize()
+    lives = built.ivf.lives
+    print(f"[{CARD}] path C: build_ivf(nlist={IVF_NLIST}) over {built.n} rows in "
+          f"{time.perf_counter() - t0:.3f} s (reconstructions, k-means on a sample of "
+          f"{min(1 << 18, built.n)}, assignment, grouping); lists of {int(lives.min())} to "
+          f"{int(lives.max())} rows, {built.ivf.order.shape[0] - built.n} pad rows")
     with tempfile.TemporaryDirectory() as path:
         t0 = time.perf_counter()
         built.save(path)
@@ -1121,8 +1347,12 @@ def phase_serving(torch, data, dev):
             and all(torch.equal(a, b) for a, b in zip(idx.model, built.model)
                     if isinstance(a, torch.Tensor))
             and torch.equal(idx.refine.data, built.refine.data))
-    print(f"path C: loaded codes, norms, model and refine store identical: {same}")
-    check(same, "path C: the loaded index differs from the saved one")
+    same_ivf = idx.ivf is not None and all(
+        np.array_equal(v, idx.ivf.to_arrays()[name])
+        for name, v in built.ivf.to_arrays().items())
+    print(f"path C: loaded codes, norms, model and refine store identical: {same}; IVF "
+          f"partition identical: {same_ivf}")
+    check(same and same_ivf, "path C: the loaded index differs from the saved one")
     Q = torch.as_tensor(x_query, device=dev)
     idx.search(Q, k=K)
     torch.cuda.synchronize()
@@ -1197,6 +1427,8 @@ def phase_serving(torch, data, dev):
     rec = report("refine=10 over bf16 (sq8 store)", res, s, reruns, 100)
     check(rec[0] > 0.9, f"path C: refined recall@1 {rec[0]} too low")
 
+    phase_ivf_routes(torch, idx, Q, gt, base)
+
     q0 = Q[:1]
     gone = idx.search(q0, k=K).ids[0].cpu().numpy()
     idx.delete(gone)
@@ -1206,10 +1438,15 @@ def phase_serving(torch, data, dev):
     probe = torch.as_tensor(x_train[:1000], device=dev)
     found = idx.search(probe, k=100).ids.cpu().numpy()
     hit = float(np.mean([i in row for i, row in zip(added[:1000], found)]))
+    check_ivf_mutations(torch, idx, Q, probe, gone, added)
     ref = idx.search(Q[:100], k=100)
     old_of_new = idx.compact()
     comp = idx.search(Q[:100], k=100)
     remap = torch.as_tensor(old_of_new, device=dev)[comp.ids.long()].int()
+    full = idx.search(Q[:100], k=100, nprobe=IVF_NLIST)
+    check(torch.equal(full.ids, comp.ids.long()) and torch.equal(full.dists, comp.dists)
+          and idx.ivf.n_grouped == x_base.shape[0] - gone.size,
+          "path C: after compact the full-probe IVF search is not the exhaustive one")
     print(f"path C: deleted {gone.size} ids nearest query 0, {back} came back; added "
           f"{len(added)} rows (ids {added[0]}..{added[-1]}), {hit:.4f} of 1000 found in "
           f"their own top-100; compact -> n={idx.n}; search after compact maps back: "

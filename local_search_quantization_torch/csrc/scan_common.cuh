@@ -1,5 +1,6 @@
 // Device functions shared by the ADC scan kernels that hold several queries'
-// LUTs in shared memory: K2's k2_filter (scan_topk.cu) and K3 (scan_select.cu).
+// LUTs in shared memory: K2's k2_filter (scan_topk.cu), K3 (scan_select.cu)
+// and K4 (scan_key.cu).
 //
 // - mono / unmono: the order-preserving image of f32 bits, the high half of
 //   the 64-bit (dist, id) keys both kernels append;
@@ -15,6 +16,8 @@
 //   of a code. An entry's G words sit in banks (c mod 32/G)*G + q for even h:
 //   the lanes of one row never collide, and the rows a warp serves together
 //   collide only where their codes agree mod 32/G.
+// - score_rows_bf16, load_entries, load_luts_bf16: the same lookup over bf16
+//   tables (K4), 4 or 8 queries' entries of a code in one 8- or 16-byte load.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -197,6 +200,93 @@ __device__ __forceinline__ void load_luts(float* s_lut, const float* __restrict_
     const int q = e % G;
     s_lut[e] = q0 + q < nq ? luts[static_cast<size_t>(q0 + q) * mh + e / G] : 0.0f;
   }
+}
+
+// ---------------------------------------------------------------------------
+// bf16 tables (K4). G queries' tables lie in shared memory as 16-bit entries
+// s_lut[(j*h + c)*G + q]; a lane serves kQ of them (4: one 8-byte load, 8:
+// one 16-byte load) and widens each entry to f32 by a shift, so the sums keep
+// the bits of f32 adds over the bf16 values.
+
+// The two bf16 halves of a 32-bit word as f32: the lower address first.
+__device__ __forceinline__ float bf16_lo(uint32_t w) { return __uint_as_float(w << 16); }
+__device__ __forceinline__ float bf16_hi(uint32_t w) {
+  return __uint_as_float(w & 0xffff0000u);
+}
+
+// kQ consecutive bf16 entries (queries) of one code, one load from the
+// shared-memory window address `addr` (8- or 16-byte aligned), as f32.
+template <int kQ>
+__device__ __forceinline__ void load_entries(unsigned addr, float (&v)[kQ]) {
+  static_assert(kQ == 4 || kQ == 8, "4 or 8 queries a lane");
+  if constexpr (kQ == 8) {
+    uint4 w;
+    asm volatile("ld.shared.v4.u32 {%0, %1, %2, %3}, [%4];\n"
+                 : "=r"(w.x), "=r"(w.y), "=r"(w.z), "=r"(w.w)
+                 : "r"(addr));
+    v[0] = bf16_lo(w.x);
+    v[1] = bf16_hi(w.x);
+    v[2] = bf16_lo(w.y);
+    v[3] = bf16_hi(w.y);
+    v[4] = bf16_lo(w.z);
+    v[5] = bf16_hi(w.z);
+    v[6] = bf16_lo(w.w);
+    v[7] = bf16_hi(w.w);
+  } else {
+    uint2 w;
+    asm volatile("ld.shared.v2.u32 {%0, %1}, [%2];\n" : "=r"(w.x), "=r"(w.y) : "r"(addr));
+    v[0] = bf16_lo(w.x);
+    v[1] = bf16_hi(w.x);
+    v[2] = bf16_lo(w.y);
+    v[3] = bf16_hi(w.y);
+  }
+}
+
+// Distances of rows r .. r + kR - 1 of the staged tile for the kQ queries
+// whose entries start at the shared-memory window address lq (that of s_lut
+// + kQ*p): the bf16 entries widened to f32 and summed in j order, then extra.
+// An entry's address is one multiply-add from its code: the address of
+// codebook j's table, plus the code times the G*2 bytes of an entry's row.
+template <typename CodeT, int G, int kQ, int kR, int kTileRows>
+__device__ __forceinline__ void score_rows_bf16(unsigned lq, const CodeT* s_codes,
+                                                const float* s_extra, int r, int m, int h,
+                                                float (&d)[kR][kQ]) {
+  constexpr unsigned kEntry = G * 2;  // bytes from one code's entries to the next's
+  int c[kR];
+  load_codes<kR>(s_codes + r, c);
+#pragma unroll
+  for (int u = 0; u < kR; ++u) load_entries<kQ>(lq + static_cast<unsigned>(c[u]) * kEntry, d[u]);
+  unsigned lj = lq;
+  for (int j = 1; j < m; ++j) {
+    load_codes<kR>(s_codes + j * kTileRows + r, c);
+    lj += static_cast<unsigned>(h) * kEntry;
+#pragma unroll
+    for (int u = 0; u < kR; ++u) {
+      float v[kQ];
+      load_entries<kQ>(lj + static_cast<unsigned>(c[u]) * kEntry, v);
+#pragma unroll
+      for (int q = 0; q < kQ; ++q) d[u][q] += v[q];
+    }
+  }
+  float e[kR];
+  load_extra<kR>(s_extra + r, e);
+#pragma unroll
+  for (int u = 0; u < kR; ++u) {
+#pragma unroll
+    for (int q = 0; q < kQ; ++q) d[u][q] += e[u];
+  }
+}
+
+// Copy one group's bf16 tables, already interleaved as [m*h][G] in device
+// memory (16-byte aligned, `bytes` a multiple of 16), into shared memory by
+// cp.async; the caller commits and waits with its first tile.
+template <int kBlockThreads>
+__device__ __forceinline__ void load_luts_bf16(uint16_t* s_lut,
+                                               const uint16_t* __restrict__ group_luts,
+                                               int bytes) {
+  for (int e = threadIdx.x; e < bytes / 16; e += kBlockThreads)
+    cp_async16(reinterpret_cast<int4*>(s_lut) + e,
+               reinterpret_cast<const int4*>(group_luts) + e);
 }
 
 }  // namespace lsq_scan

@@ -1,6 +1,6 @@
 """Servable MCQ index: one frozen trained model + a mutable code store.
 
-Port of `local_search_quantization_tpu.index` without IVF and without a mesh:
+Port of `local_search_quantization_tpu.index` without a mesh:
 
     idx = Index.build(x_train, x_base, method="lsq", device="cuda")
     idx.save("./index_lsq")
@@ -10,13 +10,17 @@ Port of `local_search_quantization_tpu.index` without IVF and without a mesh:
                                        # host scanner on the CPU
     idx.add(new_vectors)      # encode with the frozen model, append
     idx.delete([3, 17])       # O(1) +inf tombstones; ids stay stable
+    idx.build_ivf(nlist=1024)             # coarse partition over the codes
+    res = idx.search(queries, k=100, nprobe=32)   # scan 32 lists + the tail
     idx.save("./index_lsq")   # persist mutations atomically
 
 The model tensors, the refine store and the scan cache (the codes uploaded
 once, `adc.prepare_device_codes`) live on the index's device; the mutable
-code store stays in host memory, as in the JAX package. An index directory
-written by either package loads in the other. Search routing lives in
-`ops/adc.py`; this module owns the lifecycle.
+code store and the IVF partition stay in host memory, as in the JAX package
+(a CUDA index uploads the partition's grouped store once for its probed
+scans). An index directory written by either package loads in the other.
+Search routing lives in `ops/adc.py` and `ivf.py`; this module owns the
+lifecycle.
 """
 
 from __future__ import annotations
@@ -99,6 +103,8 @@ class Index:
             f: v.to(self.device) for f, v in zip(model._fields, model)
             if isinstance(v, torch.Tensor)})
         self.refine = None  # optional exact-rerank store (attach_refine)
+        self.ivf = None  # optional IVF coarse partition (build_ivf)
+        self._ivf_cache = None  # (scan version, ivf.DeviceScan, tail state)
         self.meta = dict(meta or {})
         self.meta.setdefault("method", method)
         # Row storage is capacity-managed (amortized doubling on add): `_num`
@@ -282,9 +288,9 @@ class Index:
         otherwise).
 
         Codes at h <= 256 are kept as uint8 in host memory (the native
-        scanner and the device layout both take bytes). A directory with an
-        IVF partition (ivf.npz) raises: the port has no IVF yet, and
-        dropping the partition silently is not allowed.
+        scanner and the device layout both take bytes). An IVF partition
+        (ivf.npz) or a refine store from another save than codes.npz (a crash
+        between their renames) is dropped with a note on stderr.
         """
         from local_search_quantization_torch.refine import RefineStore
 
@@ -293,8 +299,6 @@ class Index:
             meta = json.load(f)
         if meta["method"] == "rvq":
             raise _not_ported("RVQ", "RVQ")
-        if os.path.exists(os.path.join(path, "ivf.npz")):
-            raise _not_ported(f"the IVF partition of {path} (ivf.npz)", "IVF")
         model = ckpt.load_model(os.path.join(path, "model.npz"), device)
         codes = ckpt.load_codes(os.path.join(path, "codes.npz"))
         B = codes["B"]
@@ -305,24 +309,39 @@ class Index:
             meta["cbnorms"] = np.asarray(codes["cbnorms"]).tolist()
         idx = cls(meta["method"], model, B, bnorm=codes.get("bnorm"),
                   tomb=codes.get("tomb"), meta=meta, device=device)
-        # codes.npz and refine.npz are replaced by separate renames; one
-        # generation stamp per save() tells a crash leftover apart. Pre-stamp
-        # saves fall back to the row-count check.
+        # codes.npz and the ivf/refine sidecars are replaced by separate
+        # renames; one generation stamp per save() tells a crash leftover
+        # apart. Pre-stamp saves fall back to the row-count checks. A kept
+        # partition gets the tombstones re-applied (idempotent).
         gen = codes.get("gen")
+
+        def sidecar_ok(side_gen, legacy_ok: bool, what: str) -> bool:
+            if gen is None:
+                return legacy_ok
+            if side_gen is not None and bytes(side_gen) == bytes(gen):
+                return True
+            print(f"[index] dropping stale {what} from an interrupted save "
+                  "(generation mismatch with codes.npz)", file=sys.stderr)
+            return False
+
+        ivf_path = os.path.join(path, "ivf.npz")
+        if os.path.exists(ivf_path):
+            from local_search_quantization_torch.ivf import IVFPartition
+
+            with np.load(ivf_path) as z:
+                arrs = dict(z)
+            side_gen = arrs.pop("gen", None)
+            part = IVFPartition.from_arrays(arrs)
+            if sidecar_ok(side_gen, part.n_grouped <= idx.n, "IVF partition"):
+                part.tombstone(np.flatnonzero(idx._tomb))
+                idx.ivf = part
         rq_path = os.path.join(path, "refine.npz")
         if os.path.exists(rq_path):
             with np.load(rq_path) as z:
                 arrs = dict(z)
             side_gen = arrs.pop("gen", None)
             rq = RefineStore.from_arrays(arrs, device=idx.device)
-            if gen is not None:
-                ok = side_gen is not None and bytes(side_gen) == bytes(gen)
-                if not ok:
-                    print("[index] dropping stale refine store from an interrupted "
-                          "save (generation mismatch with codes.npz)", file=sys.stderr)
-            else:
-                ok = rq.n == idx.n and rq.d == idx.d
-            if ok:
+            if sidecar_ok(side_gen, rq.n == idx.n and rq.d == idx.d, "refine store"):
                 idx.refine = rq
             else:
                 idx.meta.pop("refine", None)
@@ -330,7 +349,8 @@ class Index:
         return idx
 
     def save(self, path: str) -> str:
-        """Persist model + codes (+ norm codes, tombstones, refine store).
+        """Persist model + codes (+ norm codes, tombstones, IVF partition,
+        refine store), every file of one save under one generation stamp.
 
         Codes and meta are written to a temporary file and renamed, so a
         crash cannot corrupt them; the frozen model is written only when
@@ -353,8 +373,12 @@ class Index:
         out = os.path.join(path, "codes.npz")
         os.replace(tmp, out)
         ivf_path = os.path.join(path, "ivf.npz")
-        if os.path.exists(ivf_path):
-            os.remove(ivf_path)  # a partition of other codes
+        if self.ivf is not None:
+            ivf_tmp = os.path.join(path, "ivf.tmp.npz")
+            np.savez(ivf_tmp, gen=gen, **self.ivf.to_arrays())
+            os.replace(ivf_tmp, ivf_path)
+        elif os.path.exists(ivf_path):
+            os.remove(ivf_path)  # the partition was dropped
         rq_path = os.path.join(path, "refine.npz")
         if self.refine is not None:
             rq_tmp = os.path.join(path, "refine.tmp.npz")
@@ -398,8 +422,40 @@ class Index:
 
     # -- operations ---------------------------------------------------------
 
-    def build_ivf(self, *args, **kwargs) -> None:
-        raise _not_ported("Index.build_ivf", "IVF")
+    def _reconstructions(self) -> torch.Tensor:
+        """[n, d] f32 code reconstructions in ORIGINAL space, on the index's
+        device, a chunk of rows at a time. The IVF coarse quantizer partitions
+        these (the ADC distance of a row is a function of its reconstruction
+        only, see ivf.py). opq and chainq quantize in rotated space:
+        xhat = recon @ R^T."""
+        from local_search_quantization_torch.ops import costs
+        from local_search_quantization_torch.ops.subspaces import reconstruct_pq
+
+        model, d = self.model, self.d
+        out = torch.empty((self.n, d), dtype=torch.float32, device=self.device)
+        for s0 in range(0, self.n, _ENCODE_CHUNK):
+            blk = torch.as_tensor(self.B[s0:s0 + _ENCODE_CHUNK]).to(self.device)
+            rec = (costs.reconstruct(blk, model.C) if self.additive
+                   else reconstruct_pq(blk, model.C_sub, d))
+            if self.method in ("opq", "chainq"):
+                rec = rec @ model.R.T
+            out[s0:s0 + _ENCODE_CHUNK] = rec
+        return out
+
+    def build_ivf(self, nlist: int = 1024, *, sample: int = 1 << 18, iters: int = 25,
+                  seed: int = 0) -> None:
+        """Build (or rebuild) the IVF coarse partition over all current rows,
+        on the index's device; afterwards search(..., nprobe=p) scans only the
+        p nearest lists per query plus any rows added later (the exhaustive
+        tail)."""
+        from local_search_quantization_torch import ivf as ivf_mod
+
+        extra = self._dbn if self.additive else self._extra
+        self.ivf = ivf_mod.build_partition(
+            self.B, self._reconstructions(), extra, nlist, seed=seed, sample=sample,
+            iters=iters, device=self.device)
+        self.meta["ivf_nlist"] = int(nlist)
+        self._scan_ver += 1
 
     def attach_refine(self, X, kind: str = "sq8") -> None:
         """Keep a (scalar-quantized) copy of the original vectors, [n, d] in
@@ -445,17 +501,80 @@ class Index:
         self._scan_cache = (self._scan_ver, state)
         return state
 
+    def _tail_extra(self) -> np.ndarray | None:
+        """The extra term of the rows added since the partition was built."""
+        t0 = self.ivf.n_grouped
+        if self.additive:
+            return self._dbn[t0:]
+        return None if self._extra is None else self._extra[t0:]
+
+    def _ivf_device_state(self):
+        """The partition's grouped store, and the tail's codes and extra
+        term, uploaded once to a CUDA index's device and keyed on `_scan_ver`
+        (every mutation of the codes, the tombstones or the partition bumps
+        it)."""
+        from local_search_quantization_torch import ivf as ivf_mod
+
+        cached = self._ivf_cache
+        if cached is not None and cached[0] == self._scan_ver:
+            return cached[1], cached[2]
+        scan = ivf_mod.DeviceScan(self.ivf, self.device)
+        tail = None
+        if self.n > self.ivf.n_grouped:
+            tail = adc.prepare_device_codes(
+                self.B[self.ivf.n_grouped:], self._tail_extra(), base_block=1,
+                device=self.device, h=self.meta.get("h"))
+        self._ivf_cache = (self._scan_ver, scan, tail)
+        return scan, tail
+
+    def _search_ivf(self, Q: torch.Tensor, k: int, nprobe: int) -> adc.KNNResult:
+        """The probed scan, then the rows added since the partition was built
+        scanned exhaustively and merged. A CUDA index scans on its device
+        (`ivf.DeviceScan`; the tail through K2); a CPU index takes the native
+        scanner where it is built, else the numpy oracle. ids are int64."""
+        from local_search_quantization_torch import ivf as ivf_mod
+        from local_search_quantization_torch.ops.select_kernels import scan_topk
+
+        part = self.ivf
+        luts = self._query_luts(Q).contiguous()
+        t0 = part.n_grouped
+        ntail = self.n - t0
+        if self.device.type == "cuda":
+            scan, tail = self._ivf_device_state()
+            res = scan.search(luts, k, scan.probes(Q, nprobe))
+            if ntail == 0:
+                return res
+            d, i = scan_topk(luts, *tail, min(k, ntail))
+            tail_res = adc.KNNResult(d, torch.where(i >= 0, i.long() + t0, -1))
+            return ivf_mod.merge_knn_device(res, tail_res, k)
+        Qn, ln = Q.numpy(), luts.numpy()
+        res = ivf_mod.search(part, ln, k, ivf_mod.coarse_probes(Qn, part, nprobe))
+        if ntail:
+            # The tail reuses the grouped scan's LUTs: they already carry the
+            # method's rotation and norm semantics.
+            tail = ivf_mod.exhaustive_scan(ln, self.B[t0:], self._tail_extra(),
+                                           min(k, ntail))
+            tail = adc.KNNResult(tail.dists,
+                                 np.where(tail.ids >= 0, tail.ids + t0, tail.ids))
+            res = ivf_mod.merge_knn(res, tail, k)
+        return adc.KNNResult(torch.as_tensor(res.dists), torch.as_tensor(res.ids))
+
     def search(self, Q, k: int = 100, *, mesh=None, nprobe: int | None = None,
                refine: int | None = None, precision: str = "f32") -> adc.KNNResult:
         """ADC k-NN over every live row. Beyond `active` rows, results pad
         with the (+inf, -1) sentinel. Tensors on the index's device.
 
-        refine: with a refine store, re-rank the top refine*k ADC candidates
-        by exact squared L2 to the stored vectors (ids then int64). precision
-        "bf16" rounds the query LUTs to bf16; it composes with refine, the
-        recommended pairing when using it at all. Default "f32" matches the
-        reference scanners. mesh and nprobe are not ported yet (modules
-        parallel/ and IVF, ROADMAP.md) and raise.
+        nprobe: with an IVF partition (build_ivf), scan only the nprobe
+        nearest coarse lists per query, plus the rows added since the
+        partition: approximate in which rows are candidates, exact in their
+        distances; recall -> the exhaustive scan's as nprobe -> nlist (ids then
+        int64). None/0 = exhaustive. refine: with a refine store, re-rank the
+        top refine*k ADC candidates by exact squared L2 to the stored vectors
+        (ids then int64); composes with nprobe. precision "bf16" rounds the
+        query LUTs to bf16, on the exhaustive routes only (the probed scan is
+        exact f32 by design); it composes with refine, the recommended pairing
+        when using it at all. Default "f32" matches the reference scanners.
+        mesh is not ported yet (module parallel/, ROADMAP.md) and raises.
         """
         Q = self._queries(Q)
         if Q.ndim != 2 or Q.shape[1] != self.d:
@@ -466,8 +585,10 @@ class Index:
             raise ValueError(f"precision must be 'f32' or 'bf16', got {precision!r}")
         if mesh is not None:
             raise _not_ported("search(mesh=...), the sharded query", "parallel/")
-        if nprobe is not None and nprobe != 0:
-            raise _not_ported("search(nprobe=...), the IVF route", "IVF")
+        if precision != "f32" and nprobe is not None and nprobe != 0:
+            raise ValueError(
+                "precision='bf16' applies to the exhaustive scan routes; the IVF "
+                "path scans probed candidates at exact f32 by design")
         if refine is not None and refine != 0:
             from local_search_quantization_torch.refine import rerank
 
@@ -477,11 +598,20 @@ class Index:
             refine = int(refine)
             if refine < 1:
                 raise ValueError(f"refine must be >= 1, got {refine}")
-            cand = self.search(Q, min(refine * k, self.n), precision=precision)
+            cand = self.search(Q, min(refine * k, self.n), nprobe=nprobe,
+                               precision=precision)
             # A +inf first-stage slot never reaches the re-ranker with a real
             # id: the exact distance would resurrect a tombstoned row.
             cand_ids = torch.where(torch.isfinite(cand.dists), cand.ids, -1)
             return rerank(self.refine, Q, cand_ids, k)
+        if nprobe is not None and nprobe != 0:
+            if self.ivf is None:
+                raise ValueError("nprobe given but no IVF partition; call "
+                                 "build_ivf() first")
+            nprobe = int(nprobe)
+            if nprobe < 1:
+                raise ValueError(f"nprobe must be >= 1, got {nprobe}")
+            return self._search_ivf(Q, k, nprobe)
         model, state = self.model, self._device_scan_state()
         if self.additive:
             R = model.R if self.method == "chainq" else None
@@ -553,6 +683,8 @@ class Index:
             if self._extra_buf is None:
                 self._extra_buf = np.zeros(self._B_buf.shape[0], np.float32)
             self._extra[ids] = np.inf
+        if self.ivf is not None:
+            self.ivf.tombstone(ids)  # mirror into the grouped store
         self._scan_ver += 1
         return int(ids.size)
 
@@ -561,10 +693,15 @@ class Index:
 
         Returns old_of_new [active] int64: old_of_new[j] is the previous id
         of the row now serving as id j. Ids are NOT stable across a compact.
+        An IVF partition is renumbered in place (list assignments kept).
         """
         keep = ~self._tomb
         if self.refine is not None:
             self.refine.take(keep)
+        if self.ivf is not None:
+            new_of_old = np.full(self.n, -1, np.int64)
+            new_of_old[keep] = np.arange(int(keep.sum()))
+            self.ivf.compact(new_of_old[: self.ivf.n_grouped])
         old_of_new = np.flatnonzero(keep)
         self._B_buf = np.ascontiguousarray(self.B[keep])
         if self.additive:

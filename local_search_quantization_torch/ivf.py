@@ -1,0 +1,461 @@
+"""IVF coarse partition over a quantized code store (port of `ivf.py`).
+
+An inverted-file (IVF) coarse quantizer in front of the ADC scan, so that a
+query scans only the few lists nearest to it:
+
+    part = ivf.build_partition(B, xhat, extra, nlist=1024, device=dev)
+    res  = ivf.search(part, luts, k=100, probes=ivf.coarse_probes(Q, part, 32))
+
+- The coarse quantizer trains on CODE RECONSTRUCTIONS, not original vectors:
+  the ADC distance of a row is a function of its reconstruction only, and
+  the partition can be built from a saved index alone.
+- Grouped storage pads every list segment to 64-row alignment (the native
+  scanner, native/lsq_native.cpp: lsq_linscan_ivf, runs whole chunks); pad
+  rows are excluded by the per-list live lengths and are never returned.
+- Distances over the probed candidate set are EXACT; only which rows are
+  candidates is approximate, so recall converges to the exhaustive scan's as
+  nprobe -> nlist.
+- Rows appended after the partition was built (Index.add) form a TAIL that
+  callers scan exhaustively and merge (Index.search does this).
+
+The partition's arrays are host numpy with the JAX package's names, dtypes
+and padding: `to_arrays`/`from_arrays` read and write its `ivf.npz`, and the
+host functions here (`topk_lex`, `coarse_probes`, `search`, `exhaustive_scan`,
+`merge_knn`) are its numpy functions. `build_partition` trains and assigns
+with torch on the device it is given. `DeviceScan` is the probed scan on a
+CUDA index, in plain torch (the reference has no kernel here): the grouped
+store uploaded once, probes by a matmul and a top-`nprobe`, the probed
+segments' rows gathered a chunk of queries at a time, distances summed in
+`lut_scan_block`'s order, and a lexicographic (dist, id) top-k.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from local_search_quantization_torch.ops import adc
+from local_search_quantization_torch.ops.select_kernels import _mono
+
+__all__ = ["DeviceScan", "IVFPartition", "build_partition", "coarse_probes",
+           "exhaustive_scan", "merge_knn", "merge_knn_device", "search", "topk_lex"]
+
+# Candidates (queries x the longest probed list) one chunk of the device scan
+# gathers at once: some ten int64 or f32 temporaries of this many elements.
+_DEVICE_CHUNK_ELEMS = 1 << 24
+_ASSIGN_CHUNK = 1 << 16
+
+
+def topk_lex(d: np.ndarray, ids: np.ndarray, k: int):
+    """Lexicographic-(dist, id) top-k of the FINITE candidates, with the
+    scanners' sentinel padding: (dists [k] ascending f32, ids [k] int64),
+    (+inf, -1) past the live candidates. A tie block across the k-th value
+    keeps its lowest ids: everything strictly below the boundary value plus
+    the `need` lowest ids within the tie block.
+    """
+    out_d = np.full(k, np.inf, np.float32)
+    out_i = np.full(k, -1, np.int64)
+    keep = np.flatnonzero(np.isfinite(d))
+    kq = min(k, keep.size)
+    if kq:
+        dk = d[keep]
+        thr = dk[np.argpartition(dk, kq - 1)[:kq]].max()
+        below = keep[dk < thr]
+        tie = keep[dk == thr]
+        need = kq - below.size  # >= 1: the boundary value is in the top-kq
+        if need < tie.size:
+            tie = tie[np.argpartition(ids[tie], need - 1)[:need]]
+        cand = np.concatenate([below, tie])
+        o2 = np.lexsort((ids[cand], d[cand]))[:kq]
+        out_d[:kq] = d[cand][o2]
+        out_i[:kq] = ids[cand][o2]
+    return out_d, out_i
+
+
+def _lut_scan_row(luts_q: np.ndarray, codes: np.ndarray, extra: np.ndarray | None,
+                  ids: np.ndarray, k: int):
+    """One query's numpy ADC scan: the LUT entries summed in codebook order,
+    then the extra term, then `topk_lex`."""
+    d = np.zeros(codes.shape[0], np.float32)
+    for j in range(luts_q.shape[0]):
+        d += luts_q[j][codes[:, j]]
+    if extra is not None:
+        d = d + extra
+    return topk_lex(d, ids, k)
+
+
+@dataclasses.dataclass
+class IVFPartition:
+    """Grouped code store + coarse centroids. All arrays are host numpy."""
+
+    centroids: np.ndarray  # [nlist, d] f32, original space
+    cnorms: np.ndarray  # [nlist] f32 squared centroid norms
+    order: np.ndarray  # [n_g] int64 original ids (-1 on pad rows)
+    starts: np.ndarray  # [nlist+1] int64 padded segment offsets (64-aligned)
+    lives: np.ndarray  # [nlist] int64 live rows per segment
+    codes_g: np.ndarray  # [n_g, m] uint8 grouped codes
+    codesT_g: np.ndarray  # [m, n_g] uint8 plane-major copy (native VBMI path)
+    extra_g: np.ndarray | None  # [n_g] f32 norm terms / +inf tombstones
+    pos_of_id: np.ndarray  # [n_grouped] int64: grouped position of each id
+    n_grouped: int  # ids < n_grouped are in the partition; rest = tail
+    emin: float  # lower bound of finite extra_g values (0 when None)
+
+    @property
+    def nlist(self) -> int:
+        return int(self.lives.shape[0])
+
+    def tombstone(self, ids: np.ndarray) -> None:
+        """Mirror Index.delete into the grouped store: +inf the rows so no
+        scan can return them. Ids >= n_grouped live in the tail and are the
+        caller's; negative ids are ignored."""
+        ids = np.asarray(ids, np.int64)
+        ids = ids[(ids >= 0) & (ids < self.n_grouped)]
+        if ids.size == 0:
+            return
+        if self.extra_g is None:
+            self.extra_g = np.zeros(self.order.shape[0], np.float32)
+        self.extra_g[self.pos_of_id[ids]] = np.inf
+
+    def compact(self, new_of_old: np.ndarray) -> None:
+        """Re-number after an Index.compact(): drop the rows whose
+        new_of_old[old_id] is -1, renumber the survivors, re-pad every
+        segment. List assignments are kept, so a compact costs no coarse
+        k-means. new_of_old must cover [0, n_grouped)."""
+        nlist = self.nlist
+        seg_rows = []  # per list: (codes, extras, new_ids)
+        for li in range(nlist):
+            s0, live = int(self.starts[li]), int(self.lives[li])
+            pos = np.arange(s0, s0 + live)
+            news = new_of_old[self.order[pos]]
+            keep = news >= 0
+            seg_rows.append((self.codes_g[pos[keep]],
+                             None if self.extra_g is None else self.extra_g[pos[keep]],
+                             news[keep]))
+        counts = np.array([r[2].size for r in seg_rows], np.int64)
+        starts = _padded_starts(counts)
+        n_g = int(starts[-1])
+        order = np.full(n_g, -1, np.int64)
+        codes_g = np.zeros((n_g, self.codes_g.shape[1]), np.uint8)
+        extra_g = None if self.extra_g is None else np.zeros(n_g, np.float32)
+        for li, (cb, eb, ids) in enumerate(seg_rows):
+            s0 = starts[li]
+            order[s0:s0 + ids.size] = ids
+            codes_g[s0:s0 + ids.size] = cb
+            if extra_g is not None:
+                extra_g[s0:s0 + ids.size] = eb
+        self.order, self.starts, self.lives = order, starts, counts
+        self.codes_g = codes_g
+        self.codesT_g = np.ascontiguousarray(codes_g.T)
+        self.extra_g = extra_g
+        self.n_grouped = int(counts.sum())
+        self.pos_of_id = _positions(order, self.n_grouped)
+        # emin stays valid: dropping rows can only raise the true minimum.
+
+    def to_arrays(self) -> dict:
+        """Flat dict for npz persistence (extra_g omitted when None)."""
+        out = {"centroids": self.centroids, "order": self.order, "starts": self.starts,
+               "lives": self.lives, "codes_g": self.codes_g,
+               "n_grouped": np.int64(self.n_grouped), "emin": np.float32(self.emin)}
+        if self.extra_g is not None:
+            out["extra_g"] = self.extra_g
+        return out
+
+    @classmethod
+    def from_arrays(cls, a: dict) -> "IVFPartition":
+        """Rebuild from `to_arrays` output (of either package), validating
+        the structural invariants the scanners rely on: a corrupt file fails
+        here, not as an out-of-bounds read."""
+        codes_g = np.ascontiguousarray(a["codes_g"], np.uint8)
+        order = np.asarray(a["order"], np.int64)
+        n_grouped = int(a["n_grouped"])
+        starts = np.asarray(a["starts"], np.int64)
+        lives = np.asarray(a["lives"], np.int64)
+        n_g = codes_g.shape[0]
+        if (order.shape[0] != n_g or starts.shape[0] != lives.shape[0] + 1
+                or starts[0] != 0 or starts[-1] != n_g
+                or (starts % 64).any() or (np.diff(starts) < lives).any()
+                or (lives < 0).any()):
+            raise ValueError("corrupt IVF partition arrays")
+        ids = order[order >= 0]
+        if (ids.size != n_grouped or ids.max(initial=-1) >= n_grouped
+                or np.unique(ids).size != n_grouped):
+            raise ValueError("corrupt IVF partition ids")
+        cent = np.asarray(a["centroids"], np.float32)
+        return cls(
+            centroids=cent, cnorms=(cent * cent).sum(axis=1), order=order, starts=starts,
+            lives=lives, codes_g=codes_g, codesT_g=np.ascontiguousarray(codes_g.T),
+            extra_g=(np.asarray(a["extra_g"], np.float32).copy() if "extra_g" in a
+                     else None),
+            pos_of_id=_positions(order, n_grouped), n_grouped=n_grouped,
+            emin=float(a["emin"]))
+
+
+def _padded_starts(counts: np.ndarray) -> np.ndarray:
+    """[nlist + 1] segment offsets with every segment padded to 64 rows."""
+    starts = np.zeros(counts.shape[0] + 1, np.int64)
+    np.cumsum(counts + (-counts) % 64, out=starts[1:])
+    return starts
+
+
+def _positions(order: np.ndarray, n: int) -> np.ndarray:
+    """[n] grouped position of each id of `order` (-1 on pad rows)."""
+    pos = np.empty(n, np.int64)
+    live = order >= 0
+    pos[order[live]] = np.flatnonzero(live)
+    return pos
+
+
+def build_partition(B: np.ndarray, xhat, extra: np.ndarray | None, nlist: int, *,
+                    device, seed: int = 0, sample: int = 1 << 18,
+                    iters: int = 25) -> IVFPartition:
+    """Train coarse centroids on reconstructions and group the code store.
+
+    B [n, m] codes (any int dtype, values < 256); xhat [n, d] f32
+    reconstructions (numpy, or a tensor on `device`); extra [n] f32 norm
+    terms / +inf tombstones or None. The row sample is numpy's
+    `default_rng(seed)`, as in the JAX package; the k-means (`ops/kmeans.py`,
+    from a `torch.Generator` seeded with `seed`) and the assignment (a chunked
+    full-f32 matmul and argmin) run on `device`, so the centroids are this
+    package's own. A tensor `xhat` that lies on another device than `device`
+    is refused, not moved.
+    """
+    from local_search_quantization_torch.ops import kmeans as km
+
+    n, m = B.shape
+    ns = min(sample, n)
+    if nlist < 1 or nlist > ns:
+        raise ValueError(f"nlist={nlist} out of range [1, {ns}] "
+                         f"(min of sample={sample} and n={n})")
+    if int(B.max(initial=0)) > 255:
+        raise ValueError("IVF grouped store is uint8: needs h <= 256 codes")
+    device = torch.device(device)
+    if isinstance(xhat, torch.Tensor) and xhat.device.type != device.type:
+        raise ValueError(f"build_partition: xhat lies on {xhat.device}, device={device}")
+    xhat = torch.as_tensor(xhat, dtype=torch.float32).to(device)
+
+    rng = np.random.default_rng(seed)
+    sel = rng.choice(n, ns, replace=False) if ns < n else np.arange(n)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    res = km.kmeans(gen, xhat[torch.as_tensor(sel, device=device)], nlist, maxiter=iters)
+    cent = res.centers.to(torch.float32)
+    cn = (cent * cent).sum(dim=1)
+    # Every row to its nearest centroid, chunked [c, nlist] scores.
+    assign = torch.empty(n, dtype=torch.int64, device=device)
+    for s0 in range(0, n, _ASSIGN_CHUNK):
+        blk = xhat[s0:s0 + _ASSIGN_CHUNK]
+        assign[s0:s0 + _ASSIGN_CHUNK] = torch.argmin(cn[None, :] - 2.0 * (blk @ cent.T), dim=1)
+    assign = assign.cpu().numpy()
+    centroids = cent.cpu().numpy()
+
+    counts = np.bincount(assign, minlength=nlist).astype(np.int64)
+    starts = _padded_starts(counts)
+    n_g = int(starts[-1])
+    # Stable grouping keeps ascending original ids inside each list.
+    by_list = np.argsort(assign, kind="stable")
+    live_pos = np.repeat(starts[:-1] - (np.cumsum(counts) - counts), counts) + np.arange(n)
+    order = np.full(n_g, -1, np.int64)
+    order[live_pos] = by_list
+    codes_g = np.zeros((n_g, m), np.uint8)
+    codes_g[live_pos] = np.ascontiguousarray(B, np.uint8)[by_list]
+    extra_arr = None if extra is None else np.asarray(extra, np.float32)
+    extra_g = None
+    if extra_arr is not None:
+        extra_g = np.zeros(n_g, np.float32)
+        extra_g[live_pos] = extra_arr[by_list]
+    # emin over the LIVE rows only: the 0.0 alignment pads would drag the
+    # bound below the true minimum.
+    finite = (np.array([], np.float32) if extra_arr is None
+              else extra_arr[np.isfinite(extra_arr)])
+    return IVFPartition(
+        centroids=centroids, cnorms=(centroids * centroids).sum(axis=1), order=order,
+        starts=starts, lives=counts, codes_g=codes_g,
+        codesT_g=np.ascontiguousarray(codes_g.T), extra_g=extra_g,
+        pos_of_id=_positions(order, n), n_grouped=n,
+        emin=float(finite.min()) if finite.size else 0.0)
+
+
+def coarse_probes(Q: np.ndarray, part: IVFPartition, nprobe: int) -> np.ndarray:
+    """[nq, nprobe] int32 nearest-list ids per query, ascending by coarse
+    distance (closest first)."""
+    Q = np.asarray(Q, np.float32)
+    nprobe = min(nprobe, part.nlist)
+    sc = part.cnorms[None, :] - 2.0 * (Q @ part.centroids.T)
+    idx = np.argpartition(sc, nprobe - 1, axis=1)[:, :nprobe]
+    dsel = np.take_along_axis(sc, idx, axis=1)
+    idx = np.take_along_axis(idx, np.argsort(dsel, axis=1, kind="stable"), axis=1)
+    return np.ascontiguousarray(idx, np.int32)
+
+
+def _numpy_scan(part: IVFPartition, luts: np.ndarray, k: int,
+                probes: np.ndarray) -> adc.KNNResult:
+    """The numpy oracle: exact distances, lexicographic (dist, id), (+inf,
+    -1) sentinels past the live candidates. The native scanner returns the
+    same distances; at an exact tie across the k-th value it may keep another
+    tied row (it accepts in probe and scan order)."""
+    nq = luts.shape[0]
+    dists = np.full((nq, k), np.inf, np.float32)
+    ids = np.full((nq, k), -1, np.int64)
+    for q in range(nq):
+        segs = [np.arange(part.starts[p], part.starts[p] + part.lives[p])
+                for p in probes[q] if p >= 0]
+        rows = np.concatenate(segs) if segs else np.array([], np.int64)
+        if rows.size == 0:
+            continue
+        dists[q], ids[q] = _lut_scan_row(
+            luts[q], part.codes_g[rows],
+            None if part.extra_g is None else part.extra_g[rows], part.order[rows], k)
+    return adc.KNNResult(dists, ids)
+
+
+def search(part: IVFPartition, luts: np.ndarray, k: int, probes: np.ndarray, *,
+           method: str = "auto") -> adc.KNNResult:
+    """Scan the probed segments on the host. luts [nq, m, h] f32 per-query
+    ADC tables (`adc.pq_query_luts` / `adc.lsq_query_luts` semantics, so the
+    distances compare with the exhaustive scans').
+
+    method: "auto" = the native scanner when it is built, "numpy" = the
+    oracle. Both return the same distances; ids at an exact tie across the
+    k-th value may differ (see `_numpy_scan`). Numpy arrays in and out.
+    """
+    from local_search_quantization_torch.utils import native
+
+    luts = np.ascontiguousarray(luts, np.float32)
+    if method == "numpy" or not native.has_ivf():
+        return _numpy_scan(part, luts, k, probes)
+    d, i = native.linscan_ivf(luts, part.codes_g, part.codesT_g, part.extra_g, part.order,
+                              part.starts, part.lives, probes, k, emin=part.emin)
+    return adc.KNNResult(d, i)
+
+
+def exhaustive_scan(luts: np.ndarray, codes: np.ndarray, extra: np.ndarray | None,
+                    k: int) -> adc.KNNResult:
+    """Exhaustive host ADC scan of a code block with PREBUILT per-query LUTs:
+    the tail of `Index._search_ivf` (rows appended after the partition). The
+    native scanner when it is built and the codes fit a byte; numpy
+    otherwise."""
+    from local_search_quantization_torch.utils import native
+
+    codes = np.asarray(codes)
+    n = codes.shape[0]
+    k = min(k, n)
+    if native.available() and int(codes.max(initial=0)) <= 255:
+        return adc.KNNResult(*native.linscan(luts, codes, extra, k))
+    nq = luts.shape[0]
+    dists = np.full((nq, k), np.inf, np.float32)
+    ids = np.full((nq, k), -1, np.int64)
+    row_ids = np.arange(n, dtype=np.int64)
+    extra_arr = None if extra is None else np.asarray(extra, np.float32)
+    for q in range(nq):
+        dists[q], ids[q] = _lut_scan_row(luts[q], codes, extra_arr, row_ids, k)
+    return adc.KNNResult(dists, ids)
+
+
+def merge_knn(a: adc.KNNResult, b: adc.KNNResult, k: int) -> adc.KNNResult:
+    """Merge two per-query top-k lists (numpy) into one lexicographic-(dist,
+    id) top-k, keeping the (+inf, -1) sentinel padding."""
+    d = np.concatenate([a.dists, b.dists], axis=1)
+    i = np.concatenate([a.ids, b.ids], axis=1)
+    order = np.lexsort((i, d), axis=1)[:, :k]
+    d = np.take_along_axis(d, order, axis=1)
+    i = np.take_along_axis(i, order, axis=1)
+    i[~np.isfinite(d)] = -1
+    return adc.KNNResult(d, i)
+
+
+# ---------------------------------------------------------------------------
+# The probed scan on the index's device, in plain torch.
+
+
+def _topk_lex_rows(d: torch.Tensor, ids: torch.Tensor, k: int):
+    """`topk_lex` over the rows of d [nq, c] f32 and ids [nq, c] int64 (-1
+    never wins): one `torch.topk` over the 64-bit keys (monotone image of
+    dist) << 32 | id, whose signed order is the (dist, id) order. Returns
+    (dists [nq, k], ids [nq, k] int64), (+inf, -1) where the distance is not
+    finite and past the c candidates."""
+    nq, c = d.shape
+    kk = min(k, c)
+    live = torch.isfinite(d) & (ids >= 0)
+    keys = torch.where(live, (_mono(d) - (1 << 31)) * (1 << 32) + ids.clamp(min=0),
+                       torch.iinfo(torch.int64).max)
+    pos = torch.topk(keys, kk, dim=1, largest=False, sorted=True).indices
+    live = torch.gather(live, 1, pos)
+    out_d = torch.where(live, torch.gather(d, 1, pos), float("inf"))
+    out_i = torch.where(live, torch.gather(ids, 1, pos), -1)
+    if kk < k:
+        out_d = torch.nn.functional.pad(out_d, (0, k - kk), value=float("inf"))
+        out_i = torch.nn.functional.pad(out_i, (0, k - kk), value=-1)
+    return out_d, out_i
+
+
+class DeviceScan:
+    """A partition's grouped store on a torch device, for the probed scan
+    there. Build it anew after the partition or its tombstones change."""
+
+    def __init__(self, part: IVFPartition, device):
+        dev = torch.device(device)
+        self.device = dev
+        self.nlist = part.nlist
+        self.centroids = torch.as_tensor(part.centroids).to(dev)
+        self.cnorms = torch.as_tensor(part.cnorms).to(dev)
+        self.starts = torch.as_tensor(part.starts[:-1].copy()).to(dev)
+        self.lives = torch.as_tensor(part.lives).to(dev)
+        self.codes = torch.as_tensor(part.codes_g).to(dev)  # [n_g, m] uint8
+        self.order = torch.as_tensor(part.order).to(dev)
+        self.extra = None if part.extra_g is None else torch.as_tensor(part.extra_g).to(dev)
+
+    def probes(self, Q: torch.Tensor, nprobe: int) -> torch.Tensor:
+        """[nq, nprobe] int64 nearest-list ids, closest first (the function
+        of `coarse_probes`; Q in the original space)."""
+        sc = self.cnorms[None, :] - 2.0 * (Q @ self.centroids.T)
+        return torch.topk(sc, min(nprobe, self.nlist), dim=1, largest=False).indices
+
+    def search(self, luts: torch.Tensor, k: int, probes: torch.Tensor) -> adc.KNNResult:
+        """The function of `_numpy_scan` on the device: luts [nq, m, h] f32,
+        probes [nq, p] list ids (-1 = unused). A chunk of queries gathers its
+        probed segments' positions, padded to the chunk's longest candidate
+        list (pads at +inf); distances are the LUT gathers summed in j order,
+        then the extra term. Returns (dists [nq, k] f32, ids [nq, k] int64),
+        (+inf, -1) past the live candidates."""
+        nq, m, _ = luts.shape
+        dev = self.device
+        probes = probes.to(dev, torch.int64)
+        used = probes >= 0
+        lens = torch.where(used, self.lives[probes.clamp(min=0)], 0)  # [nq, p]
+        ends = torch.cumsum(lens, dim=1)
+        longest = int(ends[:, -1].max()) if nq and probes.shape[1] else 0
+        if longest == 0:
+            return adc.KNNResult(torch.full((nq, k), float("inf"), device=dev),
+                                 torch.full((nq, k), -1, dtype=torch.int64, device=dev))
+        first = self.starts[probes.clamp(min=0)] - (ends - lens)  # position - slot
+        slots = torch.arange(longest, device=dev)
+        chunk = max(1, _DEVICE_CHUNK_ELEMS // longest)
+        out_d, out_i = [], []
+        for s in range(0, nq, chunk):
+            e, f, lq = ends[s:s + chunk], first[s:s + chunk], luts[s:s + chunk]
+            c = e.shape[0]
+            live = slots[None, :] < e[:, -1:]
+            # The probe each slot falls into: the first whose end is past it.
+            which = torch.searchsorted(e, slots[None, :].expand(c, -1).contiguous(),
+                                       right=True).clamp(max=e.shape[1] - 1)
+            pos = torch.where(live, torch.gather(f, 1, which) + slots[None, :], 0)
+            codes = self.codes[pos]  # [c, longest, m]
+            d = torch.gather(lq[:, 0, :], 1, codes[:, :, 0].long())
+            for j in range(1, m):
+                d = d + torch.gather(lq[:, j, :], 1, codes[:, :, j].long())
+            if self.extra is not None:
+                d = d + self.extra[pos]
+            d = torch.where(live, d, float("inf"))
+            dd, ii = _topk_lex_rows(d, torch.where(live, self.order[pos], -1), k)
+            out_d.append(dd)
+            out_i.append(ii)
+        return adc.KNNResult(torch.cat(out_d), torch.cat(out_i))
+
+
+def merge_knn_device(a: adc.KNNResult, b: adc.KNNResult, k: int) -> adc.KNNResult:
+    """`merge_knn` for tensors on one device: the lexicographic-(dist, id)
+    top-k of two per-query lists, ids int64, (+inf, -1) sentinels kept."""
+    d = torch.cat([a.dists, b.dists], dim=1)
+    i = torch.cat([a.ids.long(), b.ids.long()], dim=1)
+    return adc.KNNResult(*_topk_lex_rows(d, i, min(k, d.shape[1])))

@@ -30,8 +30,9 @@ from local_search_quantization_torch.ops.select_kernels import (
     fused_scan_topk,
     kernel_holds,
     lut_scan_block,
+    rerun_uncertified,
     scan_topk_reference,
-    scan_topk_warm,
+    scan_topk_warm_masked,
     select_variant,
 )
 
@@ -46,8 +47,8 @@ __all__ = ["KNNResult", "RERUNS", "TIE_SLACK", "linscan_lsq", "linscan_opq",
 TIE_SLACK = 3e-5
 
 # Queries rerun by each certificate since the counts were last zeroed: the
-# warm start of the kernel route ("warm"), its deep-k widen ("widen") and the
-# tournament ("tournament").
+# warm start of the kernel route ("warm": the queries that failed it, not the
+# batch), its deep-k widen ("widen") and the tournament ("tournament").
 RERUNS = {"warm": 0, "widen": 0, "tournament": 0}
 
 _METHODS = ("auto", "kernel", "native", "exact", "tournament", "twopass")
@@ -330,13 +331,14 @@ def _run_scan(luts_fn, Q, B, *, k: int, extra=None, query_chunk: int = 256,
         # tied queries rerun through the lexicographic "grouped" (K2).
         widen = variant in ("unsorted", "grouped_unsorted") and k < n
         k_req = k + 1 if widen else k
-        d, i, bad = scan_topk_warm(luts, Bj, extra_arr, k=k_req, deferred=True,
-                                   variant=variant, precision=precision)
-        if bad is not None and bool(bad):
-            RERUNS["warm"] += nq
-            d, i = fused_scan_topk(luts, Bj, extra_arr, k=k_req,
-                                   variant="sorted" if variant == "key" else variant,
-                                   precision=precision)
+        d, i, bad = scan_topk_warm_masked(luts, Bj, extra_arr, k=k_req,
+                                          variant=variant, precision=precision)
+        if bad is not None:
+            # Only the queries that fail their certificate rerun cold.
+            d, i, rerun = rerun_uncertified(
+                luts, Bj, extra_arr, d, i, bad, k=k_req,
+                variant="sorted" if variant == "key" else variant, precision=precision)
+            RERUNS["warm"] += rerun
         if widen:
             tied = (d[:, k - 1] == d[:, k]) & torch.isfinite(d[:, k - 1])
             d, i = d[:, :k].clone(), i[:, :k].clone()

@@ -24,8 +24,11 @@ rows are never returned and empty slots are (+inf, -1).
   free).
 - K4 `scan_key` (`csrc/scan_key.cu`; TPU `_select_kernel_key`): a scan over
   bf16-rounded LUTs that appends every id whose truncated monotone key lies
-  below t0's; `fused_scan_topk(variant="key")` re-ranks them in f32 and
-  certifies the result.
+  below t0's: a block serves `k4_geometry`'s queries, their tables
+  interleaved in shared memory (`k4_interleave`), on one of `k4_segments`'
+  row segments. `fused_scan_topk(variant="key")` re-ranks the ids in f32
+  and certifies each query (`_key_scan_topk`); `rerun_uncertified` reruns
+  the ones that fail.
 
 A wrapper runs its kernel's plain version (`*_reference`) only for tensors
 on the CPU; a CUDA tensor goes to the kernel, or the call raises. Each
@@ -69,6 +72,16 @@ _K3_ROWS_UNIT = 1024
 _K3_STATIC_SMEM = 1024
 _K3_HIST_BYTES = 1024
 _K3_MIN_SLACK = 64
+# K4 (csrc/scan_key.cu): the geometries that are built, as (queries a block,
+# queries a lane, rows a lane); the one that runs at each block width; the
+# most steps a staged tile holds; the shared memory the runtime keeps of every
+# block; and what one more block costs `k4_segments`, in tiles of scan (its
+# tables' copy).
+_K4_BUILT = ((32, 8, 2), (16, 4, 4), (8, 4, 4), (4, 4, 4), (4, 4, 1))
+_K4_LANE = {32: (8, 2), 16: (4, 4), 8: (4, 4), 4: (4, 4)}
+_K4_MAX_TILE_STEPS = 4
+_K4_BLOCK_RESERVE = 1024
+_K4_COLD_TILES = 2
 # K4's monotone keys drop their low 13 bits, as the TPU kernel's lane bits
 # (select_pallas.py:74).
 _LANE_BITS = 13
@@ -691,12 +704,114 @@ def scan_key_reference(luts: torch.Tensor, Bt: torch.Tensor,
     return ids[:, :cap].to(torch.int32), count[:, 0].to(torch.int32)
 
 
+def k4_threads(g: int) -> int:
+    """Threads of a K4 block of g queries (`block_threads` of
+    csrc/scan_key.cu): 32 warps where one block's tables fill the SM's
+    shared memory, 16 where several blocks share an SM."""
+    return 1024 if g == 32 else 512
+
+
+def k4_step(g: int, kq: int, kr: int) -> int:
+    """Rows a K4 block scores a step: g/kq lanes a row, kr consecutive rows a
+    lane (`step_rows` of csrc/scan_key.cu)."""
+    return k4_threads(g) // (g // kq) * kr
+
+
+def k4_group_elems(m: int, h: int, g: int) -> int:
+    """bf16 entries of one group's interleaved tables [m*h][g], rounded up to
+    a whole number of 16-byte loads."""
+    return -(-m * h * g // 8) * 8
+
+
+def k4_smem_bytes(m: int, h: int, code_bytes: int, g: int, kq: int, kr: int,
+                  steps: int) -> int:
+    """Dynamic shared memory of a K4 block: one group's bf16 tables and two
+    tiles, of `steps` steps each, of extra and codes. Mirrors
+    `lsq_key_smem_bytes`."""
+    return (2 * k4_group_elems(m, h, g)
+            + 2 * steps * k4_step(g, kq, kr) * (4 + m * code_bytes))
+
+
+def k4_tile_steps(m: int, h: int, code_bytes: int, g: int, kq: int, kr: int) -> int:
+    """Steps a K4 block stages at once and scores between two barriers: as
+    many as fit in shared memory beside the tables, 4 at most; 0 where not
+    even one does."""
+    room = _SMEM_LIMIT - _K4_BLOCK_RESERVE - 2 * k4_group_elems(m, h, g)
+    return max(0, min(_K4_MAX_TILE_STEPS,
+                      room // (2 * k4_step(g, kq, kr) * (4 + m * code_bytes))))
+
+
+@functools.lru_cache(maxsize=None)
+def k4_geometry(m: int, h: int, code_bytes: int, nq: int) -> tuple[int, int, int]:
+    """(g, kq, kr): the queries a K4 block serves, the queries a lane serves
+    by one shared-memory load (4: 8 bytes, 8: 16 bytes) and the consecutive
+    rows a lane scores, or (0, 0, 0) where not even 4 queries' tables fit.
+    The largest g of 32, 16, 8, 4 whose tables fit in shared memory beside
+    two tiles of one step (`k4_tile_steps` then widens the tiles), then the
+    smallest of those that still holds the whole batch (a lone query does
+    not pay for 31 padding ones). At m=7, h=256: 32 queries a block (112 KB
+    of tables) for a batch above 16. A pure function: it needs no build."""
+    fits = {}
+    for g in (32, 16, 8, 4):
+        # The geometry that runs at this width first, then the other built
+        # ones (shorter steps, for wide int32 codes).
+        for geo in [(g, *_K4_LANE[g])] + [b for b in _K4_BUILT if b[0] == g]:
+            if k4_tile_steps(m, h, code_bytes, *geo) >= 1:
+                fits[g] = geo
+                break
+    if not fits:
+        return 0, 0, 0
+    return fits[min((g for g in fits if g >= nq), default=max(fits))]
+
+
+@functools.lru_cache(maxsize=None)
+def k4_segments(n: int, nq: int, g: int, tile: int, slots: int) -> tuple[int, int]:
+    """(segments, rows a segment): K4's split of the n rows across blocks.
+    segments x ceil(nq/g) blocks run in waves of `slots` (SMs x the blocks an
+    SM holds); every block copies its group's tables in first, which costs
+    about 2 tiles of scan. Of 1 .. ceil(2 slots / groups) segments, each a
+    whole number of tiles, the fewest with the least waves x (tiles a segment
+    + 2). A segment needs no merge: every block appends to its query's one
+    list. A pure function."""
+    units = -(-n // tile)
+    groups = -(-nq // g)
+
+    def cost(s: int) -> int:
+        return -(-groups * s // slots) * (-(-units // s) + _K4_COLD_TILES)
+
+    best = min(range(1, max(1, min(units, -(-2 * slots // groups))) + 1), key=cost)
+    rows = -(-units // best) * tile
+    return -(-n // rows), rows
+
+
+def k4_interleave(luts: torch.Tensor, g: int) -> torch.Tensor:
+    """K4's tables: luts [nq, m, h] f32 -> bf16 [ceil(nq/g), group_elems],
+    rounded to nearest even (as `.to(torch.bfloat16)`), group b holding
+    queries b*g .. b*g + g - 1 interleaved as [m*h][g] (entry (j, c) of query
+    q at (j*h + c)*g + q % g), zeros for the queries past nq and in the tail
+    that rounds a group up to 16 bytes. One strided copy rounds and
+    transposes the whole groups, a second the last, partial one."""
+    nq, m, h = luts.shape
+    mh, full = m * h, nq // g
+    groups = -(-nq // g)
+    out = torch.zeros((groups, k4_group_elems(m, h, g)), dtype=torch.bfloat16,
+                      device=luts.device)
+    body = out[:, :mh * g].view(groups, mh, g)
+    flat = luts.reshape(nq, mh)
+    if full:
+        body[:full].copy_(flat[:full * g].reshape(full, g, mh).transpose(1, 2))
+    if nq > full * g:
+        body[full, :, :nq - full * g].copy_(flat[full * g:].t())
+    return out
+
+
 def scan_key(luts: torch.Tensor, Bt: torch.Tensor, extra: torch.Tensor | None,
              t0: torch.Tensor, cap: int):
     """K4: append the ids whose bf16-LUT distance key lies below t0's, see
     `scan_key_reference` for the contract. The kernel appends in no fixed
-    order; compare sorted ids. luts [nq, m, h] f32 (rounded to bf16 here),
-    t0 [nq, 1] f32. Counts launches in `scan_key.launches`."""
+    order; compare sorted ids. luts [nq, m, h] f32 (rounded to bf16 and
+    interleaved per group of queries here, `k4_interleave`), t0 [nq, 1] f32.
+    Counts launches in `scan_key.launches`."""
     dev = _cuda_device("scan_key", luts)
     if dev is None:
         return scan_key_reference(luts, Bt, extra, t0, cap)
@@ -716,21 +831,30 @@ def scan_key(luts: torch.Tensor, Bt: torch.Tensor, extra: torch.Tensor | None,
     ])
     if n >= 1 << 31 or cap < 1:
         raise ValueError("scan_key: needs n < 2^31 and cap >= 1")
-    if 8 * m * h > _SMEM_LIMIT:
-        raise ValueError(f"scan_key: m*h={m * h} bf16 LUTs exceed one block's "
-                         "shared memory")
-    hi = luts.to(torch.bfloat16).contiguous()
+    g, kq, kr = k4_geometry(m, h, code_bytes, nq)
+    if g == 0:
+        raise ValueError(f"scan_key: m*h={m * h} bf16 LUTs of 4 queries exceed one "
+                         "block's shared memory")
+    steps = k4_tile_steps(m, h, code_bytes, g, kq, kr)
+    smem = k4_smem_bytes(m, h, code_bytes, g, kq, kr, steps)
     ids = torch.full((nq, cap), -1, dtype=torch.int32, device=dev)
     count = torch.zeros((nq,), dtype=torch.int32, device=dev)
     if nq == 0 or n == 0:
         return ids, count
+    hi = k4_interleave(luts, g)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    per_sm = max(1, min(2048 // k4_threads(g),
+                        (_SMEM_LIMIT + 1024) // (smem + _K4_BLOCK_RESERVE)))
+    _, rows = k4_segments(n, nq, g, steps * k4_step(g, kq, kr), sms * per_sm)
+    vec = int(n * code_bytes % 16 == 0 and Bt.data_ptr() % 16 == 0
+              and extra.data_ptr() % 16 == 0)
     lib = _build.load("scan_key")
-    lib.lsq_scan_key.argtypes = [_P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P]
+    lib.lsq_scan_key.argtypes = [_P, _P, _I, _P, _P] + [_I] * 12 + [_P, _P, _P]
     lib.lsq_scan_key.restype = _I
     err = lib.lsq_scan_key(
         hi.data_ptr(), Bt.data_ptr(), code_bytes, extra.data_ptr(), t0.data_ptr(),
-        nq, m, h, n, cap, ids.data_ptr(), count.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream)
+        nq, m, h, n, hi.shape[1], g, kq, kr, steps, rows, cap, vec, ids.data_ptr(),
+        count.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     _build.check(lib, err, "scan_key kernel launch")
     scan_key.launches += 1
     return ids, count
@@ -834,6 +958,16 @@ def fused_scan_topk(luts: torch.Tensor, Bt: torch.Tensor, extra: torch.Tensor | 
     if variant in ("sorted", "unsorted"):
         d, i = scan_select(luts, Bt, extra, k, t0, unsorted=variant == "unsorted")
         return _pad_cols(d, i, k)
+    sd, si, bad = _key_scan_topk(luts, Bt, extra, k, t0, append_cap)
+    return sd, si, bad.any()
+
+
+def _key_scan_topk(luts: torch.Tensor, Bt: torch.Tensor, extra: torch.Tensor, k: int,
+                   t0: torch.Tensor, append_cap: int | None):
+    """The key variant with its certificate per query: K4's appended ids
+    re-ranked in f32 and sorted by (dist, id), and bad [nq] bool, set where a
+    query's k returned rows are not proven to be its exact top-k."""
+    n = Bt.shape[1]
     cap = append_cap if append_cap is not None else -(-(k * 5 // 2) // 128) * 128
     ids, count = scan_key(luts, Bt, extra, t0, cap)
     exact = _rerank_ids(luts, Bt, extra, ids)
@@ -849,7 +983,7 @@ def fused_scan_topk(luts: torch.Tensor, Bt: torch.Tensor, extra: torch.Tensor | 
     e_max = torch.where(fin, extra.abs(), 0.0).max() if n else extra.new_zeros(())
     err = ((2.0 ** -9 + 2.0 ** -16) * luts.abs().amax(dim=2).sum(dim=1, keepdim=True)
            + 2.0 ** -23 * e_max)
-    bad = (sd[:, k - 1:k] >= T_hi - err).any() | (count >= cap).any()
+    bad = (sd[:, k - 1:k] >= T_hi - err)[:, 0] | (count >= cap)
     return sd, si, bad
 
 
@@ -891,15 +1025,37 @@ def scan_topk_warm(luts: torch.Tensor, Bt: torch.Tensor, extra: torch.Tensor | N
     Pre-scans every `sample_stride`-th row and takes each query's
     `sample_rank`-th sample distance (default k/stride + 6 sqrt(k/stride) + 1)
     as t0, a >= 6-sigma upper bound on the k-th distance. The main scan then
-    keeps only rows below t0; if any query's k-th slot is >= t0 (the bound
-    under-captured), the result is not certified (`bad`) and, unless
-    `deferred`, reruns cold. "key" carries its own certificate and falls
-    back to "sorted". "grouped"/"grouped_unsorted" (K2) take their own
-    sampled threshold and certify each query inside `scan_topk`, so they
-    run here without t0 and return bad=None.
+    keeps only rows below t0; a query whose k-th slot is >= t0 (the bound
+    under-captured) is not certified and, unless `deferred`, reruns cold
+    (only the queries that failed: each query's answer is its own). "key"
+    carries its own certificate and falls back to "sorted".
+    "grouped"/"grouped_unsorted" (K2) take their own sampled threshold and
+    certify each query inside `scan_topk`, so they run here without t0 and
+    return bad=None.
 
-    deferred=True returns (dists, ids, bad), bad a 0-d bool tensor or None.
+    deferred=True returns (dists, ids, bad), bad a 0-d bool tensor (any query
+    not certified) or None; `scan_topk_warm_masked` returns the mask itself.
     """
+    d, i, bad = scan_topk_warm_masked(
+        luts, Bt, extra, k=k, sample_stride=sample_stride, min_n=min_n,
+        sample_rank=sample_rank, min_k=min_k, variant=variant, precision=precision)
+    if deferred:
+        return d, i, None if bad is None else bad.any()
+    if bad is not None:
+        d, i, _ = rerun_uncertified(luts, Bt, extra, d, i, bad, k=k,
+                                    variant="sorted" if variant == "key" else variant,
+                                    precision=precision)
+    return d, i
+
+
+def scan_topk_warm_masked(luts: torch.Tensor, Bt: torch.Tensor,
+                          extra: torch.Tensor | None, *, k: int, sample_stride: int = 16,
+                          min_n: int = 1 << 16, sample_rank: int | None = None,
+                          min_k: int = 512, variant: str = "sorted",
+                          precision: str = "f32"):
+    """`scan_topk_warm(deferred=True)` with the certificate per query:
+    (dists, ids, bad), bad [nq] bool set where the query is not certified, or
+    None where the call ran cold (and is exact)."""
     if precision == "bf16" and variant == "key":
         raise ValueError("variant='key' is hi-only by construction; "
                          "precision='bf16' applies to the buffer variants")
@@ -912,20 +1068,30 @@ def scan_topk_warm(luts: torch.Tensor, Bt: torch.Tensor, extra: torch.Tensor | N
             or k * sample_stride * 2 > n or n < min_n):
         d, i = fused_scan_topk(luts, Bt, extra, k=k, variant=exact_variant,
                                precision=precision)
-        return (d, i, None) if deferred else (d, i)
+        return d, i, None
     t0, cap_hint = warm_bound(luts, Bt, extra, k=k, sample_stride=sample_stride,
                               sample_rank=sample_rank, variant=exact_variant,
                               precision=precision)
     if key_mode:
-        d, i, bad = fused_scan_topk(luts, Bt, extra, k=k, t0=t0, variant="key",
-                                    append_cap=cap_hint)
-    else:
-        d, i = fused_scan_topk(luts, Bt, extra, k=k, t0=t0, variant=variant,
-                               precision=precision)
-        bad = (d[:, k - 1:] >= t0).any()
-    if deferred:
-        return d, i, bad
-    if bool(bad):
-        return fused_scan_topk(luts, Bt, extra, k=k, variant=exact_variant,
-                               precision=precision)
-    return d, i
+        if extra is None:
+            extra = torch.zeros((n,), dtype=torch.float32, device=luts.device)
+        return _key_scan_topk(luts, Bt, extra, k, t0, cap_hint)
+    d, i = fused_scan_topk(luts, Bt, extra, k=k, t0=t0, variant=variant,
+                           precision=precision)
+    return d, i, (d[:, k - 1:] >= t0).any(dim=1)
+
+
+def rerun_uncertified(luts: torch.Tensor, Bt: torch.Tensor, extra: torch.Tensor | None,
+                      d: torch.Tensor, i: torch.Tensor, bad: torch.Tensor, *, k: int,
+                      variant: str, precision: str = "f32"):
+    """Rerun cold, through `fused_scan_topk(variant=...)`, the queries that
+    `bad` [nq] marks, and put their rows into copies of (d, i). One host sync
+    reads the mask. Returns (dists, ids, number of queries rerun)."""
+    rows = torch.nonzero(bad)[:, 0]
+    if rows.numel() == 0:
+        return d, i, 0
+    d2, i2 = fused_scan_topk(luts[rows].contiguous(), Bt, extra, k=k, variant=variant,
+                             precision=precision)
+    d, i = d.clone(), i.clone()
+    d[rows], i[rows] = d2, i2
+    return d, i, rows.numel()

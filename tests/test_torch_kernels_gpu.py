@@ -371,6 +371,12 @@ def _hits(lut, Bt, extra, t0):
     (70_000, 5, 4, 16, 800, 1024),      # small h: giant tie blocks
     (100_000, 3, 7, 256, 3000, 1024),   # overflow: count >= cap
     (3000, 2, 3, 300, 200, 512),        # int32 codes only (h > 256)
+    (300_007, 1, 7, 256, 1400, 2560),   # nq = 1 (4 queries a block); ragged tiles
+    (300_007, 32, 7, 256, 1400, 2560),  # one full group of 32; n no multiple of 16
+    (150_000, 70, 7, 256, 900, 2048),   # three groups, the last partial
+    (200_001, 33, 5, 40, 700, 2048),    # h = 40: 80-byte rows of a codebook's table
+    (50_000, 20, 16, 256, 500, 1024),   # m = 16: 16 queries a block
+    (20_000, 6, 16, 1024, 300, 1024),   # int32 codes, wide tables: 4 queries, short steps
 ])
 def test_k4_kernel_matches_plain_version(cuda, n, nq, m, h, rank, cap):
     lut, Bt, extra = _k2_inputs(cuda, n, nq, m, h, seed=n + rank, n_inf=n // 50)
@@ -405,6 +411,87 @@ def test_k4_kernel_matches_plain_version(cuda, n, nq, m, h, rank, cap):
     if not bool(want[2]):  # certified: the exact top-k, K2's answer
         exact = scan_select_reference(lut, Bt, extra, rank // 2)
         assert torch.equal(got[0], exact[0]) and torch.equal(got[1], exact[1])
+
+
+# The shape at which `k4_geometry` picks each built geometry: (nq, m, h), and
+# whether uint8 codes run there beside int32.
+_K4_SHAPE_OF = {(32, 8, 2): (37, 7, 256, True), (16, 4, 4): (13, 7, 256, True),
+                (8, 4, 4): (7, 7, 256, True), (4, 4, 4): (3, 7, 256, True),
+                (4, 4, 1): (6, 16, 1024, False)}
+
+
+@pytest.mark.parametrize("geometry", sk._K4_BUILT)
+def test_k4_every_built_geometry_matches_plain_version(cuda, geometry, monkeypatch):
+    """Each (queries a block, queries a lane, rows a lane) that is built, at a
+    shape that runs it and at every tile length it fits there, with and
+    without overflow."""
+    nq, m, h, bytes_too = _K4_SHAPE_OF[geometry]
+    lut, Bt, extra = _k2_inputs(cuda, 120_007, nq, m, h, seed=3, n_inf=500)
+    t0 = _kth_t0(lut, Bt, extra, 900)
+    for cap in (2048, 256):
+        want_ids, want_count = scan_key_reference(lut, Bt, extra, t0, cap)
+        for dtype in (torch.uint8, torch.int32) if bytes_too else (torch.int32,):
+            codes = Bt.to(dtype).contiguous()
+            assert sk.k4_geometry(m, h, codes.element_size(), nq) == geometry
+            monkeypatch.setattr(sk, "_K4_MAX_TILE_STEPS", 4)
+            fit = sk.k4_tile_steps(m, h, codes.element_size(), *geometry)
+            for steps in range(1, fit + 1):
+                monkeypatch.setattr(sk, "_K4_MAX_TILE_STEPS", steps)
+                ids, count = scan_key(lut, codes, extra, t0, cap)
+                assert torch.equal(count, want_count)
+                ok = count <= cap
+                assert torch.equal(torch.sort(ids[ok], dim=1)[0],
+                                   torch.sort(want_ids[ok], dim=1)[0])
+                assert ((ids[~ok] >= 0).all()
+                        and all(torch.unique(r).numel() == cap for r in ids[~ok]))
+
+
+def test_k4_shape_rules_mirror_the_library(cuda):
+    import ctypes
+
+    lib = _build.load("scan_key")
+    lib.lsq_key_step.argtypes = [ctypes.c_int] * 3
+    lib.lsq_key_threads.argtypes = [ctypes.c_int]
+    lib.lsq_key_smem_bytes.argtypes = [ctypes.c_int] * 7
+    for g, kq, kr in sk._K4_BUILT:
+        assert lib.lsq_key_step(g, kq, kr) == sk.k4_step(g, kq, kr)
+        assert lib.lsq_key_threads(g) == sk.k4_threads(g)
+        for m, h in ((7, 256), (3, 41), (16, 256), (16, 1024)):
+            for code_bytes in (1, 4):
+                for steps in (1, 4):
+                    assert lib.lsq_key_smem_bytes(
+                        sk.k4_group_elems(m, h, g), m, code_bytes, g, kq, kr, steps
+                    ) == sk.k4_smem_bytes(m, h, code_bytes, g, kq, kr, steps)
+    assert lib.lsq_key_step(32, 4, 1) == 0  # not built
+
+
+def test_key_route_reruns_only_the_failing_queries_on_the_card(cuda, monkeypatch):
+    """Tables of zeros and ones have few distinct distances, so some of their
+    queries tie with the warm bound and fail the key certificate;
+    unit-normal tables pass: the route's ids are K2's, and RERUNS["warm"]
+    counts the failing queries alone."""
+    from local_search_quantization_torch.ops import adc
+
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    n = 1 << 17
+    luts = torch.randn((40, 7, 256), generator=gen, device=cuda)
+    luts[::4] = torch.randint(0, 2, (10, 7, 256), generator=gen, device=cuda).float()
+    B = torch.randint(0, 256, (n, 7), generator=gen, device=cuda, dtype=torch.int32)
+    Q = torch.arange(40, dtype=torch.float32, device=cuda)[:, None]
+
+    def run(variant):
+        monkeypatch.setenv("LSQ_TPU_SELECT_VARIANT", variant)
+        return adc._run_scan(lambda q: luts[q[:, 0].long()], Q, B.cpu().numpy(), k=1000,
+                             topk_method="kernel")
+
+    Bt = B.t().to(torch.uint8).contiguous()
+    failing = int(sk.scan_topk_warm_masked(luts, Bt, None, k=1000, variant="key")[2].sum())
+    assert 0 < failing <= 10
+    before, launches = adc.RERUNS["warm"], scan_key.launches
+    res = run("key")
+    assert adc.RERUNS["warm"] - before == failing and scan_key.launches == launches + 1
+    want = run("grouped")
+    assert torch.equal(res.ids, want.ids) and torch.equal(res.dists, want.dists)
 
 
 def test_k4_t0_inf_appends_every_finite_row_and_flags_overflow(cuda):

@@ -25,14 +25,11 @@ def index():
     return Index.build(xt, xt[:120], "pq", m=2, h=8, niter=1, seed=0, device="cpu")
 
 
-def _saved(index, path, *, method=None, ivf=False):
+def _saved(index, path, *, method):
     index.save(str(path))
-    if method is not None:
-        meta = json.loads((path / "meta.json").read_text())
-        meta["method"] = method
-        (path / "meta.json").write_text(json.dumps(meta))
-    if ivf:
-        np.savez(path / "ivf.npz", nlist=np.int32(4))
+    meta = json.loads((path / "meta.json").read_text())
+    meta["method"] = method
+    (path / "meta.json").write_text(json.dumps(meta))
     return str(path)
 
 
@@ -42,20 +39,14 @@ CASES = {
         np.zeros((8, 8), np.float32), np.zeros((8, 8), np.float32), "rvq", device="cpu"),
     "Index.load of an RVQ index": lambda ix, tmp: Index.load(
         _saved(ix, tmp, method="rvq"), device="cpu"),
-    "Index.load of an IVF index": lambda ix, tmp: Index.load(
-        _saved(ix, tmp, ivf=True), device="cpu"),
-    "Index.build_ivf": lambda ix, tmp: ix.build_ivf(4),
     "search(mesh=)": lambda ix, tmp: ix.search(np.zeros((1, 8), np.float32), k=3,
                                                mesh=object()),
-    "search(nprobe=)": lambda ix, tmp: ix.search(np.zeros((1, 8), np.float32), k=3,
-                                                 nprobe=2),
     "update_codebooks(method='lsqr')": lambda ix, tmp: update_codebooks(
         torch.zeros((4, 8)), torch.zeros((4, 2), dtype=torch.int64), 8, method="lsqr"),
 }
 MODULES = {"Index(method='rvq')": "RVQ", "Index.build('rvq')": "RVQ",
-           "Index.load of an RVQ index": "RVQ", "Index.load of an IVF index": "IVF",
-           "Index.build_ivf": "IVF", "search(mesh=)": "parallel/",
-           "search(nprobe=)": "IVF", "update_codebooks(method='lsqr')": "batched LSQR"}
+           "Index.load of an RVQ index": "RVQ", "search(mesh=)": "parallel/",
+           "update_codebooks(method='lsqr')": "batched LSQR"}
 
 
 @pytest.mark.parametrize("case", sorted(CASES))

@@ -328,3 +328,146 @@ def test_k3_segment_merge_of_a_wider_keep_is_value_exact():
     assert torch.equal(got[0], want[0][:, :k])
     cert = want[0][:, k - 1] < want[0][:, k]
     assert torch.equal(got[1][cert], want[1][cert, :k])
+
+
+def test_k4_geometry_follows_what_fits_and_the_batch():
+    """K4 holds the most queries a block whose bf16 tables fit beside two
+    tiles, and no more than the batch needs; a lane always loads 4 or 8
+    queries; a tile holds as many steps as fit, 4 at most."""
+    assert sk.k4_geometry(7, 256, 1, 1000) == (32, 8, 2)   # the card's shape: 112 KB
+    assert sk.k4_geometry(7, 256, 4, 1000) == (32, 8, 2)   # int32 codes: 16 KB a step
+    assert sk.k4_tile_steps(7, 256, 1, 32, 8, 2) == 4 and sk.k4_tile_steps(7, 256, 4, 32, 8, 2) == 3
+    assert sk.k4_geometry(7, 256, 1, 32)[0] == 32 and sk.k4_geometry(7, 256, 1, 17)[0] == 32
+    assert sk.k4_geometry(7, 256, 1, 16)[0] == 16 and sk.k4_geometry(7, 256, 1, 5)[0] == 8
+    assert sk.k4_geometry(7, 256, 1, 1)[0] == 4 == sk.k4_geometry(7, 256, 1, 4)[0]
+    assert sk.k4_geometry(16, 256, 1, 1000)[0] == 16       # 32 queries: 256 KB of tables
+    assert sk.k4_geometry(16, 1024, 1, 1000)[0] == 4       # 128 KB at 4 queries
+    assert sk.k4_geometry(16, 1024, 4, 1000) == (4, 4, 1)  # int32 codes, m=16: short steps
+    assert sk.k4_geometry(16, 2048, 1, 1000) == (0, 0, 0)  # too large for any block
+    assert sk.k4_geometry(3, 41, 4, 1000)[0] == 32         # h odd: the tail is padded
+    assert sk.k4_group_elems(3, 41, 4) == 496 and sk.k4_group_elems(7, 256, 32) == 57_344
+    assert [sk.k4_step(*g) for g in sk._K4_BUILT] == [512, 512, 1024, 2048, 512]
+    # Every built geometry is one that some shape runs.
+    assert {sk.k4_geometry(7, 256, 1, nq) for nq in (1000, 16, 8, 4)} | {
+        sk.k4_geometry(16, 1024, 4, 1000)} == set(sk._K4_BUILT)
+    for m, h, cb, nq in [(7, 256, 1, 1000), (7, 256, 4, 3), (16, 256, 4, 40), (32, 512, 1, 9),
+                         (5, 40, 1, 100), (16, 1024, 4, 1000)]:
+        g, kq, kr = sk.k4_geometry(m, h, cb, nq)
+        steps = sk.k4_tile_steps(m, h, cb, g, kq, kr)
+        assert (g, kq, kr) in sk._K4_BUILT and g % kq == 0 and 1 <= steps <= 4
+        assert sk.k4_smem_bytes(m, h, cb, g, kq, kr, steps) + 1024 <= 227 * 1024
+        assert steps == 4 or sk.k4_smem_bytes(m, h, cb, g, kq, kr, steps + 1) + 1024 > 227 * 1024
+        assert sk.k4_group_elems(m, h, g) % 8 == 0 and sk.k4_step(g, kq, kr) % 16 == 0
+        bigger = [x for x in (32, 16, 8) if x > g]
+        assert all(x >= 2 * nq or all(sk.k4_tile_steps(m, h, cb, *b) == 0
+                                      for b in sk._K4_BUILT if b[0] == x) for x in bigger)
+
+
+@pytest.mark.parametrize("n,nq,g,tile,slots,want", [
+    (1_000_000, 1000, 32, 2048, 132, (4, 251_904)),  # 32 groups x 4: one wave of 128 blocks
+    (1_000_000, 32, 32, 2048, 132, (123, 8192)),     # one group over the whole card
+    (1_000_000, 1, 4, 8192, 132, (123, 8192)),       # a lone query: every tile its own block
+    (300_007, 32, 32, 1536, 132, (98, 3072)),
+    (1000, 3, 4, 8192, 528, (1, 8192)),
+    (20_000, 1, 4, 8192, 4, (3, 8192)),
+])
+def test_k4_segments_fill_the_card(n, nq, g, tile, slots, want):
+    segments, rows = sk.k4_segments(n, nq, g, tile, slots)
+    assert (segments, rows) == want
+    assert rows % tile == 0 and (segments - 1) * rows < n <= segments * rows
+    groups = -(-nq // g)
+    assert segments * groups <= max(groups, 2 * slots + groups)
+
+
+@pytest.mark.parametrize("nq,g", [(8, 4), (5, 4), (3, 8), (33, 32)])
+def test_k4_interleave_lays_each_group_out_entry_major(nq, g):
+    rng = np.random.default_rng(nq)
+    m, h = 3, 5  # m*h*4 entries: no multiple of 8, so a group's tail is padded
+    luts = torch.as_tensor(rng.normal(size=(nq, m, h)).astype(np.float32))
+    hi = luts.to(torch.bfloat16)  # round to nearest even
+    out = sk.k4_interleave(luts, g)
+    groups = -(-nq // g)
+    assert tuple(out.shape) == (groups, sk.k4_group_elems(m, h, g)) and out.is_contiguous()
+    assert out.dtype == torch.bfloat16 and out.shape[1] % 8 == 0
+    body = out[:, :m * h * g].reshape(groups, m * h, g).float()
+    for q in range(groups * g):
+        want = hi[q].reshape(-1).float() if q < nq else torch.zeros(m * h)
+        assert torch.equal(body[q // g, :, q % g], want)
+    assert (out[:, m * h * g:] == 0).all()
+
+
+def _mixed_key_case():
+    """65,536 rows, 6 queries: three with tables of zeros and ones, whose few
+    distinct distances tie with the warm bound so the key certificate fails,
+    and three with unit-normal tables, which it certifies."""
+    rng = np.random.default_rng(31)
+    n = 1 << 16
+    luts = rng.normal(size=(6, M, H)).astype(np.float32)
+    luts[::2] = rng.integers(0, 2, size=(3, M, H)).astype(np.float32)
+    B = rng.integers(0, H, size=(n, M), dtype=np.int32)
+    extra = np.zeros(n, np.float32)
+    return luts, B, extra
+
+
+def test_key_variant_certifies_each_query_on_its_own():
+    luts, B, extra = _mixed_key_case()
+    args = (_t(luts), _t(B.T.astype(np.uint8)), _t(extra))
+    d, i, bad = sk.scan_topk_warm_masked(*args, k=512, variant="key")
+    assert bad.tolist() == [True, False, True, False, True, False]
+    _, _, any_bad = sk.scan_topk_warm(*args, k=512, variant="key", deferred=True)
+    assert any_bad.ndim == 0 and bool(any_bad)
+    want = sk.scan_topk_reference(*args, 512)
+    ok = ~bad
+    assert torch.equal(d[ok], want[0][ok]) and torch.equal(i[ok], want[1][ok])
+    # The non-deferred form reruns the three failing queries and is exact.
+    d2, i2 = sk.scan_topk_warm(*args, k=512, variant="key")
+    assert torch.equal(d2, want[0]) and torch.equal(i2, want[1])
+    d3, i3, rerun = sk.rerun_uncertified(*args, d, i, bad, k=512, variant="sorted")
+    assert rerun == 3 and torch.equal(d3, want[0]) and torch.equal(i3, want[1])
+    assert sk.rerun_uncertified(*args, d, i, torch.zeros(6, dtype=torch.bool), k=512,
+                                variant="sorted") == (d, i, 0)
+
+
+@pytest.mark.parametrize("variant,failing", [("key", 3), ("sorted", 3), ("grouped", 0)])
+def test_kernel_route_reruns_only_the_queries_that_fail(monkeypatch, variant, failing):
+    """The "key" route returns the ids of the "sorted" and the default
+    routes, and RERUNS["warm"] counts the queries that failed their
+    certificate (the three whose k-th distance ties with the bound), not the
+    batch."""
+    from local_search_quantization_torch.ops import adc as tadc
+
+    luts, B, extra = _mixed_key_case()
+    Q = torch.arange(6, dtype=torch.float32)[:, None]
+
+    def run(v):
+        monkeypatch.setenv("LSQ_TPU_SELECT_VARIANT", v)
+        return tadc._run_scan(lambda q: _t(luts)[q[:, 0].long()], Q, B, k=512,
+                              extra=extra, topk_method="kernel")
+
+    before = tadc.RERUNS["warm"]
+    res = run(variant)
+    assert tadc.RERUNS["warm"] - before == failing
+    want = run("grouped")
+    assert torch.equal(res.ids, want.ids) and torch.equal(res.dists, want.dists)
+
+
+def test_k4_kernel_compare_is_the_truncated_key_compare():
+    """The identity csrc/scan_key.cu rests on (`f32_key_fast`, `fast_bound`):
+    (key(x) & M) < (key(t) & M) with M = -(1 << 13) is key'(x) < T, where
+    key'(x) = bits ^ ((bits >> 31) & 0x7fffffff) and T = K if K > 0 or K is
+    the least int32, else K - 1, for K = key(t) & M: on every bit pattern."""
+    rng = np.random.default_rng(0)
+    edge = np.array([0, -2 ** 31, 1, -1, 2 ** 31 - 1, -2 ** 31 + 1, 0x7F800000,
+                     0xFF800000 - 2 ** 32, 8192, -8192, 8191, -8193, 0x7FC00000])
+    bits = np.concatenate([rng.integers(-2 ** 31, 2 ** 31, 500_000), edge])
+    bound = np.concatenate([rng.integers(-2 ** 31, 2 ** 31, 500_000), rng.permutation(edge)])
+    for shift in (0, 5):  # also bounds close to the values
+        t = bound if shift == 0 else bits + rng.integers(-20_000, 20_000, bits.size)
+        t = np.clip(t, -2 ** 31, 2 ** 31 - 1)
+        key = sk._f32_to_key(torch.as_tensor(bits).to(torch.int32).view(torch.float32))
+        K = sk._f32_to_key(torch.as_tensor(t).to(torch.int32).view(torch.float32)) \
+            & sk._KEY_MASK
+        want = (key & sk._KEY_MASK) < K
+        fast = torch.as_tensor(bits ^ ((bits >> 31) & 0x7FFFFFFF))
+        T = torch.where((K > 0) | (K == -2 ** 31), K, K - 1)
+        assert torch.equal(fast < T, want) and 0.05 < want.float().mean() < 0.95
