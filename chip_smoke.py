@@ -98,6 +98,26 @@ nothing of JAX. Phases:
    size (`benchmarks.bench_kernel_variants`, `benchmarks.bench` and
    `benchmarks.bench_icm_phases` of `local_search_quantization_torch`);
    K7 must launch in every variant, and K1 and K5 must launch.
+4e. path E, the serving command line as a user runs it, in subprocesses:
+   the build twin (`scripts/build_index.py` of the port: LSQ m=7 + norm
+   byte, h=256, niter=10, ilsiter=16, IVF nlist=1024, sq8 refine, over the
+   same synthetic corpus: 100k train, 1M base); the eval twin (recall@1/10/
+   100/1000 within 0.01 of path C's default route); the serve twin (its
+   stderr must name the card and the kernels its warm-up built): 200 JSON
+   requests of 1 query and 50 of 16 at k=100 (client p50/p99 ms), the four
+   protocol modes of the `bench_serve` twin at nq=2048, batch 256, k=100
+   (qps against the direct search), binary requests of 1000 queries at
+   k=1000, bf16 k=100, refine=10, nprobe=32 and of 100 queries at k=10000
+   (each sent twice); a second server under LSQ_TPU_SELECT_VARIANT=key
+   (ids identical); add of 10,000 rows in one frame, delete of the 10
+   nearest ids of query 0, a query, compact and save. Each server counts
+   its requests' kernel launches (from 0 after its warm-up) and writes them
+   to stderr at EOF: the first must launch K1 (add), K2 and K3, the key
+   server K4, and these counts are path E's launches. Then every served
+   request again through `Index.search` on the index as built, in this
+   process, its ids and distances identical to the served ones bit for bit
+   (parity only), and the saved directory reloaded (n = 1,009,990, its
+   codes the replay's, the added rows found).
 
 Prints the kernels' JSON line and then, last, the device line. Any failed
 check exits non-zero before those lines are printed. Every time is printed
@@ -112,6 +132,8 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
+import threading
 import time
 
 import numpy as np
@@ -1171,35 +1193,15 @@ COUNTED = ("ils_encode", "scan_topk", "icm_sweeps_v2", "icm_sweeps_v1", "scan_se
 
 
 def zero_counters():
-    from local_search_quantization_torch.ops import icm_kernels, select_kernels
+    from local_search_quantization_torch.ops import launch_counts
 
-    icm_kernels.ils_encode_streamed.launches = 0
-    icm_kernels.fused_icm_sweeps.launches.update(v2=0, v1=0)
-    for v in icm_kernels.DISSECT_VARIANTS:
-        icm_kernels.icm_sweeps_dissect.launches[v] = 0
-    for name in ("scan_select", "scan_key", "k2_filter", "k2_select"):
-        getattr(select_kernels, name).launches = 0
-    select_kernels.scan_topk.dense_launches = select_kernels.scan_topk.failed = 0
+    launch_counts.zero()
 
 
 def read_counters() -> dict:
-    from local_search_quantization_torch.ops import icm_kernels, select_kernels
+    from local_search_quantization_torch.ops import launch_counts
 
-    out = {"ils_encode": icm_kernels.ils_encode_streamed.launches,
-           "icm_sweeps_v2": icm_kernels.fused_icm_sweeps.launches["v2"],
-           "icm_sweeps_v1": icm_kernels.fused_icm_sweeps.launches["v1"],
-           "dissect": dict(icm_kernels.icm_sweeps_dissect.launches)}
-    # K7 counts its launches per variant; its kernels line counts them all.
-    out["icm_sweeps_dissect"] = sum(out["dissect"].values())
-    for name in ("scan_select", "scan_key", "k2_filter", "k2_select"):
-        out[name] = getattr(select_kernels, name).launches
-    # K2's dense path, and the queries rerun there after a failed certificate.
-    out["scan_topk_dense"] = select_kernels.scan_topk.dense_launches
-    out["scan_topk_failed"] = select_kernels.scan_topk.failed
-    # K2 launches its filter (and then its select) once a chunk of queries on
-    # the staged path, its dense kernels once a launch on the dense path.
-    out["scan_topk"] = out["k2_filter"] + out["scan_topk_dense"]
-    return out
+    return launch_counts.read()
 
 
 class Env:
@@ -1312,9 +1314,8 @@ def check_ivf_mutations(torch, idx, Q, probe, gone, added):
 
 def phase_serving(torch, data, dev):
     """Path C: Index.build -> save -> load -> search on every route ->
-    refine -> delete, add, compact. Returns its kernel launch counts."""
-    import tempfile
-
+    refine -> delete, add, compact. Returns its kernel launch counts and the
+    default route's recall curve at k=1000."""
     from local_search_quantization_torch.index import Index
     from local_search_quantization_torch.ops import adc
     from local_search_quantization_torch.utils.eval import eval_recall
@@ -1378,10 +1379,10 @@ def phase_serving(torch, data, dev):
               ("tournament, store", {"LSQ_TPU_TOPK_STORE": "1"}, "tournament"),
               ("tournament, recompute", {"LSQ_TPU_TOPK_STORE": "0"}, "tournament"),
               ("exact", {}, "exact")]
-    results = {}
+    results, recalls = {}, {}
     for label, env, method in routes:
         res, s, reruns = search_route(torch, idx, Q, K, env, method)
-        report(label, res, s, reruns, K)
+        recalls[label] = report(label, res, s, reruns, K)
         results[label] = res
     base = results["default (K2)"]
     for label, res in results.items():
@@ -1463,7 +1464,321 @@ def phase_serving(torch, data, dev):
     check(all(launches[n] > 0 for n in ("ils_encode", "scan_topk", "k2_filter",
                                         "k2_select", "scan_select", "scan_key")),
           f"path C: a kernel of the path never launched: {launches}")
+    return launches, recalls["default (K2)"]
+
+
+# Path E: the serving command line (the twins of scripts/build_index.py,
+# serve.py and eval_index.py, and of benchmarks/bench_serve.py) run as a user
+# runs them, in subprocesses on the card, at SIFT1M's shape.
+CLI_SCRIPTS = os.path.join(ROOT, "local_search_quantization_torch", "scripts")
+CLI_NBASE = 1_000_000
+CLI_BUILD = ["--method", "lsq", "--dataset", "synthetic", "--ntrain", "100000",
+             "--nbase", str(CLI_NBASE), "--m", str(M), "--h", str(H), "--niter", "10",
+             "--ilsiter", "16", "--ivf-nlist", str(IVF_NLIST), "--refine", "sq8",
+             "--seed", "0"]
+CLI_ADD = 10_000
+# A server is killed this long after it started, so a stuck pipe cannot hang
+# the run (its next read then fails the path).
+SERVER_DEADLINE_S = 600
+
+
+def run_twin(script: str, *args: str) -> str:
+    """Run a CLI twin to its end; its stdout. Fails the path on a nonzero exit."""
+    out = subprocess.run([sys.executable, os.path.join(CLI_SCRIPTS, script), *args],
+                         capture_output=True, text=True, timeout=SERVER_DEADLINE_S)
+    check(out.returncode == 0, f"path E: {script} exited {out.returncode}: "
+                               f"{out.stderr[-3000:]}")
+    return out.stdout
+
+
+class Server:
+    """The serve twin in a subprocess on the card, one request at a time: a
+    request is written whole, then its response read whole (the header line
+    and the binary blocks), so neither pipe can fill."""
+
+    def __init__(self, index: str, log: str, env=None):
+        self.log = log
+        with open(log, "wb") as err:
+            self.proc = subprocess.Popen(
+                [sys.executable, os.path.join(CLI_SCRIPTS, "serve.py"), "--index", index,
+                 "--k", "100"], stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+                stderr=err, env=env)
+        self.timer = threading.Timer(SERVER_DEADLINE_S, self.proc.kill)
+        self.timer.daemon = True
+        self.timer.start()
+        t0 = time.perf_counter()
+        line = self.proc.stdout.readline()
+        self.ready_s = time.perf_counter() - t0
+        check(bool(line), f"path E: a server exited before 'ready': {self.stderr()[-3000:]}")
+        self.ready = json.loads(line)
+
+    def stderr(self) -> str:
+        with open(self.log, errors="replace") as f:
+            return f.read()
+
+    def ask(self, req: dict, frame: bytes = b""):
+        """(response, client ms): a binary response's blocks are arrays in it."""
+        from local_search_quantization_torch.benchmarks.bench_serve import read_response
+
+        t0 = time.perf_counter()
+        self.proc.stdin.write(json.dumps(req).encode() + b"\n" + frame)
+        self.proc.stdin.flush()
+        try:
+            resp = read_response(self.proc.stdout)
+        except EOFError as e:
+            fail(f"path E: the server died on request {req.get('id')} ({e}): "
+                 f"{self.stderr()[-3000:]}")
+        check("error" not in resp, f"path E: request {req.get('id')} answered {resp}")
+        return resp, (time.perf_counter() - t0) * 1e3
+
+    def close(self) -> dict:
+        """EOF; fails the path unless the server exits 0. Returns the kernel
+        launches its requests made (its last stderr note)."""
+        from local_search_quantization_torch.scripts.serve import served_launches
+
+        self.proc.stdin.write(b"EOF\n")
+        self.proc.stdin.close()
+        code = self.proc.wait(timeout=120)
+        check(code == 0, f"path E: a server exited {code}: {self.stderr()[-3000:]}")
+        return served_launches(self.stderr())
+
+    def kill(self) -> None:
+        self.timer.cancel()
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+
+
+def framed(rid: int, Q: np.ndarray, **kw):
+    """A binary request both ways (both blocks) of the rows Q."""
+    return ({"id": rid, "binary_vectors": int(Q.shape[0]), "binary": True, **kw},
+            np.ascontiguousarray(Q, "<f4").tobytes())
+
+
+def latency_batches(x_query):
+    """The latency traffic: 200 requests of 1 query, then 50 of 16 (k=100)."""
+    return [x_query[(i * nq) % 1000:(i * nq) % 1000 + nq]
+            for nq, count in ((1, 200), (16, 50)) for i in range(count)]
+
+
+def print_latency(where: str, batches, ms) -> None:
+    for nq in (1, 16):
+        sel = [t for q, t in zip(batches, ms) if q.shape[0] == nq]
+        print(f"[{CARD}] path E latency {where}, {len(sel)} requests of {nq} "
+              f"quer{'y' if nq == 1 else 'ies'} at k=100, ms: p50 "
+              f"{np.percentile(sel, 50):.3f}, p99 {np.percentile(sel, 99):.3f}, min "
+              f"{min(sel):.3f}, max {max(sel):.3f}")
+
+
+def cli_latency(server, batches):
+    """The latency traffic as JSON requests; (responses, client ms)."""
+    out, ms = [], []
+    for i, rows in enumerate(batches):
+        resp, t = server.ask({"id": i, "vectors": rows.tolist(), "k": 100})
+        check(np.shape(resp["ids"]) == (rows.shape[0], 100),
+              "path E: a latency response is malformed")
+        out.append(resp)
+        ms.append(t)
+    print_latency("on the client (JSON)", batches, ms)
+    return out
+
+
+def timed_search(torch, idx, Q, **kw):
+    """(result on the host, ms): Index.search and the fetch of both outputs,
+    as the server runs them, on the host clock."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = idx.search(Q, **kw)
+    out = res.ids.cpu().numpy(), res.dists.cpu().numpy()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def cli_replay(torch, idx, batches, served_lat, big, served_key, mutation):
+    """The served requests again through `Index.search` on the index as built,
+    in this process: every response's ids and distances must be the served
+    ones bit for bit (same code, same card). A check of parity only: the
+    path's launches are the servers' own counts."""
+    from local_search_quantization_torch.ops import adc
+    from local_search_quantization_torch.ops.select_kernels import scan_topk
+
+    rows, added, gone, q0, served_after = mutation
+    torch.cuda.synchronize()
+    failed = scan_topk.failed
+    for key in adc.RERUNS:
+        adc.RERUNS[key] = 0
+    ms, same = [], True
+    for Q, resp in zip(batches, served_lat):
+        (ids, dists), t = timed_search(torch, idx, Q, k=100)
+        ms.append(t)
+        same &= (np.array_equal(ids, np.asarray(resp["ids"]))
+                 and np.array_equal(dists, np.asarray(resp["dists"], np.float32)))
+    print_latency("in this process (Index.search + fetch)", batches, ms)
+    print(f"path E replay latency: ids and dists identical to the served JSON {same}; "
+          f"queries rerun after a failed K2 certificate {scan_topk.failed - failed}, reruns "
+          f"{adc.RERUNS}")
+    check(same, "path E: a served latency response differs from Index.search")
+    for name, (kw, Q, resp, _) in big.items():
+        (ids, dists), t_first = timed_search(torch, idx, Q, **kw)
+        _, t_again = timed_search(torch, idx, Q, **kw)
+        same_i, same_d = np.array_equal(ids, resp["ids"]), np.array_equal(dists, resp["dists"])
+        print(f"[{CARD}] path E replay {name} ({Q.shape[0]} queries, {kw}): Index.search + "
+              f"fetch {t_first:.3f} ms, again {t_again:.3f} ms; ids identical {same_i}, "
+              f"dists identical {same_d}")
+        check(same_i and same_d, f"path E: the served {name} differs from Index.search")
+    with Env(LSQ_TPU_SELECT_VARIANT="key"):
+        key = idx.search(big["k1000"][1], k=K)
+    check(np.array_equal(key.ids.cpu().numpy(), served_key),
+          "path E: the key route in this process differs from the key server")
+    check(idx.add(rows) == added, "path E: add gave other ids in this process")
+    idx.delete(gone)
+    after = idx.search(q0, k=100)
+    check(np.array_equal(after.ids.cpu().numpy(), served_after["ids"])
+          and np.array_equal(after.dists.cpu().numpy(), served_after["dists"]),
+          "path E: the query after delete differs from the served one")
+    idx.compact()
+    torch.cuda.synchronize()
+    print(f"path E replay: key route identical to the key server; add, delete, the query "
+          f"after it and compact as served; reruns {dict(adc.RERUNS)}")
+
+
+def served_counts(label: str, launches: dict, kernels) -> dict:
+    """A server's own launch counts (its requests only, the warm-up not
+    counted); fails the path unless each of `kernels` launched."""
+    print(f"path E {label}: kernel launches of its requests {launches}")
+    check(all(launches[n] > 0 for n in kernels),
+          f"path E: the {label} never launched one of {kernels}: {launches}")
     return launches
+
+
+def phase_cli(torch, data, dev, recall_c):
+    """Path E: build -> eval -> serve (latency, the four protocol modes,
+    large batches, a key-route server, mutations) -> the in-process replay
+    -> reload. Returns the launches the two servers' requests made, as
+    each server counted them: K1 (add), K2, K3 on the first, K4 on the
+    key-route one."""
+    from local_search_quantization_torch.benchmarks import bench_serve
+    from local_search_quantization_torch.index import Index
+
+    x_train, _, x_query, _ = data
+    t_path = time.perf_counter()
+    servers = []
+    with tempfile.TemporaryDirectory() as tmp:
+        try:
+            index = os.path.join(tmp, "index")
+            t0 = time.perf_counter()
+            last = run_twin("build_index.py", "--out", index, *CLI_BUILD).splitlines()[-1]
+            with open(os.path.join(index, "meta.json")) as f:
+                meta = json.load(f)
+            print(f"[{CARD}] path E: build_index twin {' '.join(CLI_BUILD)}: build_s "
+                  f"{meta['build_s']} (Index.build + build_ivf), "
+                  f"{time.perf_counter() - t0:.3f} s with the process, corpus and save; "
+                  f"{last[:160]}")
+
+            # The eval twin on the index as built (it regenerates the corpus
+            # from the meta, so it runs before any mutation).
+            table = os.path.join(tmp, "recall.json")
+            t0 = time.perf_counter()
+            run_twin("eval_index.py", "--index", index, "--nquery", "1000", "--knn", "1000",
+                     "--out", table)
+            with open(table) as f:
+                ev = json.load(f)
+            rec = [ev["recall"][f"r@{n}"] for n in (1, 10, 100, 1000)]
+            want = [float(recall_c[n - 1]) for n in (1, 10, 100, 1000)]
+            print(f"[{CARD}] path E: eval_index twin, 1000 queries at k=1000 in "
+                  f"{time.perf_counter() - t0:.3f} s ({ev['qps']:.1f} qps in the twin): "
+                  f"recall@1/10/100/1000 " + " / ".join(f"{r:.4f}" for r in rec)
+                  + "; path C's default route " + " / ".join(f"{r:.4f}" for r in want))
+            check(all(abs(a - b) <= 0.01 for a, b in zip(rec, want)),
+                  "path E: the eval twin's recall is not path C's within 0.01")
+
+            idx = Index.load(index, device=dev)  # the as-built index, for the replay
+            a = Server(index, os.path.join(tmp, "a.log"))
+            servers.append(a)
+            name = torch.cuda.get_device_name(0)
+            check(a.ready == {"ready": True, "method": "lsq", "n": CLI_NBASE, "d": D,
+                              "k": 100, "ivf_nlist": IVF_NLIST, "refine": "sq8"},
+                  f"path E: ready line {a.ready}")
+            note = a.stderr().strip()
+            check(name in note and "scan_topk" in note,
+                  f"path E: the start-up line does not name the card and kernels: {note}")
+            print(f"path E: server ready in {a.ready_s:.3f} s (load, kernels, warm-up); "
+                  f"stderr: {note}")
+
+            batches = latency_batches(x_query)
+            served_lat = cli_latency(a, batches)
+
+            ov = bench_serve.run(index, nq=2048, k=100, batch=256, device=dev)
+            for line in bench_serve.lines(ov, a.ready["n"], 2048, 100, 256, dev.type, "f32"):
+                print(f"[{CARD}] path E protocol: {line}")
+
+            big = {"k1000": ({"k": K}, x_query),
+                   "bf16": ({"k": 100, "precision": "bf16"}, x_query),
+                   "refine10": ({"k": 100, "refine": 10}, x_query),
+                   "nprobe32": ({"k": K, "nprobe": 32}, x_query),
+                   "k10000": ({"k": 10_000}, x_query[:100])}
+            # Each sent twice: the first pays for the server's first use of
+            # the route (allocations, uploads), the second is steady.
+            for i, (label, (kw, Q)) in enumerate(list(big.items())):
+                resp, ms = a.ask(*framed(100 + i, Q, **kw))
+                again, ms_again = a.ask(*framed(150 + i, Q, **kw))
+                check(resp["ids"].shape == (Q.shape[0], kw["k"])
+                      and np.array_equal(resp["ids"], again["ids"]),
+                      f"path E: {label} response shape {resp['ids'].shape}, or unstable")
+                big[label] = (kw, Q, resp, ms_again)
+                print(f"[{CARD}] path E {label}: {Q.shape[0]} queries, {kw}, binary both "
+                      f"ways: {ms:.3f} client ms, again {ms_again:.3f}")
+
+            b = Server(index, os.path.join(tmp, "b.log"),
+                       env=dict(os.environ, LSQ_TPU_SELECT_VARIANT="key"))
+            servers.append(b)
+            served_key, ms = b.ask(*framed(200, x_query, k=K))
+            _, ms_again = b.ask(*framed(201, x_query, k=K))
+            same = np.array_equal(served_key["ids"], big["k1000"][2]["ids"])
+            print(f"[{CARD}] path E key-route server: ready in {b.ready_s:.3f} s; 1000 "
+                  f"queries at k={K} in {ms:.3f} client ms, again {ms_again:.3f}; ids "
+                  f"identical to the first server's: {same}")
+            check(same, "path E: the key-route server returns other ids")
+            served_b = served_counts("key-route server", b.close(), ("scan_key",))
+
+            rows = x_train[:CLI_ADD]
+            r_add, ms_add = a.ask({"op": "add", "id": 300, "binary_vectors": CLI_ADD},
+                                  np.ascontiguousarray(rows, "<f4").tobytes())
+            added = list(range(CLI_NBASE, CLI_NBASE + CLI_ADD))
+            check(r_add["added"] == added and r_add["n"] == CLI_NBASE + CLI_ADD,
+                  f"path E: add answered n={r_add['n']}")
+            gone = big["k1000"][2]["ids"][0, :10]
+            r_del, ms_del = a.ask({"op": "delete", "id": 301, "ids": gone.tolist()})
+            after, _ = a.ask(*framed(302, x_query[:1], k=100))
+            check(r_del["deleted"] == 10 and not np.isin(after["ids"], gone).any(),
+                  "path E: a deleted id came back")
+            r_comp, ms_comp = a.ask({"op": "compact", "id": 303})
+            r_save, ms_save = a.ask({"op": "save", "id": 304})
+            n_final = CLI_NBASE + CLI_ADD - 10
+            check(r_comp["removed"] == 10 and r_comp["n"] == r_save["n"] == n_final,
+                  f"path E: compact/save answered {r_comp}, {r_save}")
+            served_a = served_counts("server", a.close(),
+                                     ("ils_encode", "scan_topk", "scan_select"))
+            print(f"[{CARD}] path E mutations, client ms: add of {CLI_ADD} rows in one "
+                  f"frame {ms_add:.3f}, delete of the 10 nearest of query 0 {ms_del:.3f}, "
+                  f"compact {ms_comp:.3f} (n={r_comp['n']}), save {ms_save:.3f}")
+
+            cli_replay(torch, idx, batches, served_lat, big, served_key["ids"],
+                       (rows, added, gone, x_query[:1], after))
+            again = Index.load(index, device=dev)
+            found = again.search(rows[:1000], k=100).ids.cpu().numpy()
+            hit = float(np.mean([n_final - CLI_ADD + i in row for i, row in enumerate(found)]))
+            same = (np.array_equal(again.B, idx.B) and np.array_equal(again._dbn, idx._dbn)
+                    and again.n == idx.n == n_final)
+            print(f"path E reload: n={again.n}, codes and norms identical to the replay's "
+                  f"{same}; {hit:.4f} of 1000 added rows found in their own top-100")
+            check(same and hit >= 0.9, "path E: the saved index is not the replayed one")
+            del idx, again
+            torch.cuda.empty_cache()
+        finally:
+            for server in servers:
+                server.kill()
+    print(f"[{CARD}] path E: wall {time.perf_counter() - t_path:.3f} s")
+    return {name: served_a[name] + served_b[name] for name in COUNTED}
 
 
 def phase_main(torch, demo, data, dev):
@@ -1516,8 +1831,9 @@ def main() -> int:
     k3, t0, cap = phase_k3(torch, k2_inputs, practical.pop("l2_gbps"))
     k4 = phase_k4(torch, k2_inputs, t0, cap)
     del k2_inputs
-    paths = (*phase_main(torch, demo, data, dev), phase_serving(torch, data, dev),
-             phase_bench_path(torch, dev))
+    paths = [*phase_main(torch, demo, data, dev)]
+    launches_c, recall_c = phase_serving(torch, data, dev)
+    paths += [launches_c, phase_bench_path(torch, dev), phase_cli(torch, data, dev, recall_c)]
     # Each kernel's count summed over the paths that run it (K6 is on none).
     launches = {name: sum(p[name] for p in paths) for name in COUNTED}
 

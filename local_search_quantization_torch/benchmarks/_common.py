@@ -16,7 +16,7 @@ import time
 import numpy as np
 import torch
 
-from local_search_quantization_torch.index import entry_device
+from local_search_quantization_torch.utils.device import entry_device
 
 
 def device_arg(parser: argparse.ArgumentParser) -> argparse.ArgumentParser:

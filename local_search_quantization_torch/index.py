@@ -35,6 +35,7 @@ import torch
 
 from local_search_quantization_torch.ops import adc
 from local_search_quantization_torch.utils import checkpoint as ckpt
+from local_search_quantization_torch.utils.device import entry_device
 
 _METHODS = ("pq", "opq", "chainq", "lsq", "rvq")
 _ENCODE_CHUNK = 1 << 16
@@ -57,17 +58,6 @@ def _not_ported(what: str, module: str) -> NotImplementedError:
     changes as the roadmap is rewritten."""
     return NotImplementedError(f"{what} is not ported to the PyTorch package yet "
                                f"(module {module}; ROADMAP.md, modules to port)")
-
-
-def entry_device(device) -> torch.device:
-    """The device of an entry point: CUDA unless the caller asks for the CPU.
-    Raises when CUDA is asked for and there is no CUDA device, rather than
-    running on the CPU unasked."""
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"device {str(device)!r} was asked for but no CUDA device "
-                           "is available; pass device='cpu' to run on the CPU")
-    return device
 
 
 def _encode_chunked(fn, X, device) -> np.ndarray:

@@ -10,6 +10,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from local_search_quantization_torch.utils.device import entry_device
+
 _INT_FIELDS = ("B", "B_norms")
 # Fields kept as float32 ndarrays on the host (objective traces).
 _HOST_FIELDS = ("obj",)
@@ -70,13 +72,15 @@ def save_model(path: str, model) -> None:
     np.savez_compressed(path, __model__=type(model).__name__, **model_to_numpy(model))
 
 
-def load_model(path: str, device="cpu"):
-    """Load a model saved by either package; tensors land on `device`."""
+def load_model(path: str, device="cuda"):
+    """Load a model saved by either package; tensors land on `device` (the
+    GPU unless device="cpu"; raises without a GPU otherwise)."""
     with np.load(path, allow_pickle=False) as data:
         name = str(data["__model__"])
         if name not in _registry():
             raise ValueError(f"unknown or unported model type {name!r} in {path}")
-        return model_from_numpy(name, {f: data[f] for f in data.files}, device)
+        return model_from_numpy(name, {f: data[f] for f in data.files},
+                                entry_device(device))
 
 
 def save_codes(path: str, B, extra: dict | None = None) -> None:

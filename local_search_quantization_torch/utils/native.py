@@ -18,6 +18,7 @@ import numpy as np
 
 _LIB = None
 _TRIED = False
+NOT_BUILT = "native library not built; run `make -C native`"
 
 
 def _lib_path() -> str:
@@ -105,7 +106,7 @@ def linscan(luts: np.ndarray, codes: np.ndarray, extra: np.ndarray | None,
     """
     lib = _load()
     if lib is None:
-        raise RuntimeError("native library not built; run `make -C native`")
+        raise RuntimeError(NOT_BUILT)
     if method not in ("auto", "fast", "heap"):
         raise ValueError(f"unknown method {method!r}")
     luts = np.ascontiguousarray(luts, np.float32)
@@ -151,7 +152,7 @@ def linscan_ivf(luts: np.ndarray, codes_g: np.ndarray, codesT_g: np.ndarray | No
     """
     lib = _load()
     if lib is None or not hasattr(lib, "lsq_linscan_ivf"):
-        raise RuntimeError("native library not built; run `make -C native`")
+        raise RuntimeError(NOT_BUILT)
     luts = np.ascontiguousarray(luts, np.float32)
     codes_g = np.ascontiguousarray(codes_g, np.uint8)
     nq, m, h = luts.shape
@@ -193,7 +194,7 @@ def vecs_read(path: str, scalar: type, offset: int = 0, count: int | None = None
     np.uint8)."""
     lib = _load()
     if lib is None:
-        raise RuntimeError("native library not built; run `make -C native`")
+        raise RuntimeError(NOT_BUILT)
     scalar = np.dtype(scalar)
     sb = scalar.itemsize
     # Probe the dimension first to size the buffer.

@@ -1,32 +1,44 @@
-"""The port's encoder bench twins (`local_search_quantization_torch/benchmarks/`),
-its profiling helpers, and its import boundary, on the CPU.
+"""The port's bench twins (`local_search_quantization_torch/benchmarks/`), its
+profiling helpers, and its import boundary, on the CPU.
 
 Each twin runs at a tiny size with `--device cpu` and prints the lines of
 its JAX counterpart: the device line first, then its results; the headline
-twin ends with the one-line JSON of bench.py. Without a GPU every twin
-raises unless asked for the CPU. No module of the port imports JAX, the JAX
-package or the JAX package's bench scripts.
+twin ends with the one-line JSON of bench.py, bench_serve with its own JSON
+line. Without a GPU every twin raises unless asked for the CPU. bench_ivf
+scans on the host through the native library and raises with its message
+where it is not built. No module of the port (its `scripts/` too) imports
+JAX, the JAX package or the JAX package's bench scripts.
 """
 
 import ast
+import functools
 import json
 import os
 import re
 
+import numpy as np
 import pytest
 import torch
 
 from local_search_quantization_torch.benchmarks import (
     bench,
+    bench_bf16_refine,
     bench_icm_modes,
     bench_icm_phases,
     bench_ils_shapes,
+    bench_ivf,
     bench_kernel_variants,
+    bench_query,
+    bench_scale,
+    bench_select,
+    bench_serve,
     bench_train_encode,
     bench_viterbi,
 )
 from local_search_quantization_torch.benchmarks._common import baseline_vecs_per_sec
-from local_search_quantization_torch.utils import profiling
+from local_search_quantization_torch.index import Index
+from local_search_quantization_torch.utils import native, profiling
+from local_search_quantization_torch.utils.synth import synthetic_dataset
 
 torch.set_num_threads(2)
 
@@ -72,13 +84,72 @@ TWINS = {
          rf"\(objective \S+\)",
          rf"LSQ-16 base encode of 200 vectors: {NUM} s wall \({NUM} vec/s end to end, "
          rf"host arrays in and codes back; first {NUM} s\); mean cost {NUM}"]),
+    # The query-side twins; {index} and {cache} are the `made` fixture's.
+    "bench_query": (
+        bench_query, ["gather", "50", "--n", "5000", "--nq", "16"],
+        [rf"mode=gather/exact: {NUM} qps over 5,000 codes \(k=50\) = \S+ code-dists/s  "
+         rf"\[first={NUM}s steady={NUM}s\]"]),
+    "bench_select": (
+        bench_select, ["100", "8", "1024", "--n", "70000"],
+        [r"note: the tb/nqt sweeps are the TPU's block geometry, which the port does not "
+         r"have; ignored",
+         rf"k=100 nq=8 m=7 h=256 sorted f32: cold +{NUM} qps \| warm +{NUM} qps"]),
+    "bench_scale": (
+        bench_scale, [],
+        [rf"\[encode64m\] 256 rows x 2 ILS rounds in {NUM}s = {NUM} vec/s end-to-end "
+         rf"\({NUM} vec/s per ILS round\), codes\+cost device-resident",
+         *(rf"\[query100m:{run}\] 8 queries x k=1000 over 3,000 codes \(2 host-merged "
+           rf"segments\) in {NUM}s = {NUM} qps incl. {NUM} GB H2D code streaming"
+           for run in ("cold", "steady")),
+         rf"\[k10000\] 4 queries x k=10000 over 12,000 codes \(auto route: CPU\) in "
+         rf"{NUM}s = {NUM} qps"]),
+    "bench_serve": (
+        bench_serve, ["--index", "{index}", "--nq", "64", "--batch", "32", "--k", "10"],
+        [rf"n=1500 nq=64 k=10 batch=32 device=cpu precision=f32 \| direct {NUM} qps",
+         *(rf"  {re.escape(f'{mode:9s}')} {NUM} qps  \(overhead -?\d+%\)"
+           for mode in bench_serve.MODES),
+         r"\{\"direct_qps\": .*\}"]),
+    "bench_bf16_refine": (
+        bench_bf16_refine, ["--cache", "{cache}", "--n", "1500", "--ntrain", "600",
+                            "--nq", "20", "--trials", "1"],
+        [rf"\{{\"precision\": \"{p}\", \"refine\": {r}, \"k\": {k}, \"qps\": {NUM}, "
+         rf"\"true_r@1\": {NUM}, \"true_r@10\": {NUM}\}}"
+         for p in ("f32", "bf16") for r in (0, 4) for k in (10, 100)]),
 }
 
 
+@pytest.fixture(scope="module")
+def made(tmp_path_factory):
+    """What the query-side twins read: a tiny PQ index directory for
+    bench_serve, a prepared cache for bench_bf16_refine's measure phase."""
+    root = tmp_path_factory.mktemp("twins")
+    dd = synthetic_dataset(0, d=16, n_train=400, n_base=1500, n_query=1)
+    Index.build(dd.train, dd.base, "pq", m=2, h=16, niter=2,
+                device="cpu").save(str(root / "index"))
+    bench_bf16_refine.prep(str(root / "cache"), n=1500, ntrain=600, nq=20, method="pq",
+                           device="cpu")
+    return {"index": str(root / "index"), "cache": str(root / "cache")}
+
+
+# bench_scale's phases at a tiny size: its argv takes only the phase names
+# (as the reference's), so the test gives the phase functions their sizes.
+SCALE_TINY = {"encode64m": {"n_total": 256, "chunk": 128, "ilsiter": 2},
+              "query100m": {"n_total": 3000, "nq": 8, "segment": 2048},
+              "k10000": {"n": 12000, "nq": 4}}
+
+
+def _argv(name: str, made) -> list[str]:
+    return [a.format(**made) for a in TWINS[name][1]]
+
+
 @pytest.mark.parametrize("name", sorted(TWINS))
-def test_twin_runs_on_the_cpu_and_prints_its_lines(name, capsys):
-    module, argv, patterns = TWINS[name]
-    module.main(argv + ["--device", "cpu"])
+def test_twin_runs_on_the_cpu_and_prints_its_lines(name, made, capsys, monkeypatch):
+    module, _, patterns = TWINS[name]
+    if module is bench_scale:
+        for phase, sizes in SCALE_TINY.items():
+            monkeypatch.setattr(bench_scale, phase,
+                                functools.partial(getattr(bench_scale, phase), **sizes))
+    module.main(_argv(name, made) + ["--device", "cpu"])
     out = capsys.readouterr().out.strip().splitlines()
     assert out[0] == CPU_LINE
     assert len(out) == 1 + len(patterns), out
@@ -115,12 +186,33 @@ def test_ils_shapes_reports_a_failed_shape_and_exits_nonzero(monkeypatch, capsys
         "m=7 h=16 d=128: FAILED — RuntimeError: out of memory")
 
 
-@pytest.mark.parametrize("name", sorted(TWINS))
+@pytest.mark.parametrize("name", sorted(TWINS) + ["bench_ivf"])
 def test_twin_needs_a_gpu_unless_asked_for_the_cpu(name, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    module, argv, _ = TWINS[name]
+    module = bench_ivf if name == "bench_ivf" else TWINS[name][0]
+    argv = [] if name == "bench_ivf" else _argv(name, {"index": "unused", "cache": "unused"})
     with pytest.raises(RuntimeError, match="device='cpu'"):
         module.main(argv)
+
+
+def test_ivf_twin_prints_its_lines_or_needs_the_native_library(tmp_path, capsys):
+    """The host IVF bench: with the native library, the exhaustive line and
+    one row a probe count; without it, utils/native's error."""
+    dd = synthetic_dataset(0, d=128, n_train=600, n_base=1000, n_query=20)
+    corpus = str(tmp_path / "corpus.npz")
+    np.savez(corpus, train=dd.train, base=dd.base, query=dd.query, gt=dd.gt)
+    argv = ["--corpus", corpus, "--cache", str(tmp_path / "cache"), "--nq", "20",
+            "--nlist", "4", "--sample", "800", "--kmeans-iters", "2", "--k", "10",
+            "--device", "cpu"]
+    if not native.has_ivf():
+        with pytest.raises(RuntimeError, match=re.escape(native.NOT_BUILT)):
+            bench_ivf.main(argv)
+        return
+    res = bench_ivf.main(argv)
+    out = capsys.readouterr().out.strip().splitlines()
+    assert out[0] == CPU_LINE
+    assert [json.loads(line)["nprobe"] for line in out[-3:]] == [1, 2, 4]
+    assert res["exhaustive"]["qps"] > 0 and len(res["sweep"]) == 3
 
 
 def test_profiling_spans():

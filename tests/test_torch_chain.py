@@ -293,7 +293,7 @@ def test_checkpoints_round_trip_both_ways(tmp_path, corpus, name):
         jm = jchainq.train_chainq(X, o.B, o.R, JChainQConfig(m=4, h=8, niter=2))
     jpath = os.path.join(tmp_path, "jax.npz")
     jckpt.save_model(jpath, jm)
-    tm = tckpt.load_model(jpath)
+    tm = tckpt.load_model(jpath, device="cpu")
     assert type(tm).__name__ == name and tm._fields == jm._fields
     direct = tckpt.model_from_numpy(name, jm._asdict())
     for f in jm._fields:

@@ -1,8 +1,8 @@
 """The port's entry points run on the GPU unless the caller asks for the CPU.
 
-Without a CUDA device, `Index.build`, `Index.load` and the demo raise a
-clear error instead of running on the CPU unasked; `device="cpu"` (the
-demo's `--device cpu`) runs them here. `torch.cuda.is_available` is patched
+Without a CUDA device, `Index.build`, `Index.load`, `checkpoint.load_model`
+and the demo raise a clear error instead of running on the CPU unasked;
+`device="cpu"` (the demo's `--device cpu`) runs them here. `torch.cuda.is_available` is patched
 to False, so the tests hold on a machine with a GPU too.
 """
 
@@ -47,6 +47,18 @@ def test_index_load_needs_a_gpu_unless_asked_for_the_cpu(no_gpu, tmp_path):
         Index.load(str(tmp_path))
     idx = Index.load(str(tmp_path), device="cpu")
     assert idx.device.type == "cpu" and idx.search(xb[:3], k=5).ids.shape == (3, 5)
+
+
+def test_load_model_needs_a_gpu_unless_asked_for_the_cpu(no_gpu, tmp_path):
+    from local_search_quantization_torch.utils import checkpoint as ckpt
+
+    xt, xb = _data()
+    path = str(tmp_path / "model.npz")
+    ckpt.save_model(path, Index.build(xt, xb, "pq", device="cpu", **BUILD).model)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ckpt.load_model(path)
+    model = ckpt.load_model(path, device="cpu")
+    assert model.C_sub.device.type == "cpu"
 
 
 def test_demo_needs_a_gpu_unless_asked_for_the_cpu(no_gpu):

@@ -662,3 +662,47 @@ def test_k2_fit_rules_mirror_the_library(cuda):
                 assert lib.lsq_k2_group(m, h, code_bytes) == g, (m, h, code_bytes)
                 if g:
                     assert lib.lsq_k2_filter_smem_bytes(m, h, code_bytes, g) <= 227 * 1024
+
+
+def test_serve_twin_on_the_card_answers_as_an_in_process_search(cuda, tmp_path):
+    """The serve twin on the card (K2-K4 built by its warm-up) returns, over
+    binary frames and JSON, the ids of `Index.search` on the same directory
+    in this process, and its requests launched K2 by its own count."""
+    import json
+    import os
+    import subprocess
+    import sys
+
+    from local_search_quantization_torch.benchmarks.bench_serve import read_response
+    from local_search_quantization_torch.index import Index
+    from local_search_quantization_torch.scripts.serve import served_launches
+
+    rng = np.random.default_rng(5)
+    xt = (rng.normal(size=(3000, 32)) * 10).astype(np.float32)
+    xb = (rng.normal(size=(70_000, 32)) * 10).astype(np.float32)
+    path = str(tmp_path / "idx")
+    Index.build(xt, xb, "lsq", m=4, h=64, niter=2, ilsiter=4, device=cuda).save(path)
+    Q = (rng.normal(size=(50, 32)) * 10).astype("<f4")
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    p = subprocess.Popen([sys.executable, "-m", "local_search_quantization_torch.scripts.serve",
+                          "--index", path, "--k", "10"], cwd=root, stdin=subprocess.PIPE,
+                         stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+    try:
+        assert json.loads(p.stdout.readline())["ready"]
+        p.stdin.write(json.dumps({"id": 1, "binary_vectors": 50, "binary": True,
+                                  "dists": False}).encode() + b"\n" + Q.tobytes())
+        p.stdin.write(json.dumps({"id": 2, "vectors": Q[:5].tolist(), "k": 3}).encode()
+                      + b"\nEOF\n")
+        p.stdin.close()
+        head = read_response(p.stdout)
+        r2 = read_response(p.stdout)
+        assert p.wait(timeout=120) == 0
+        err = p.stderr.read().decode()
+    finally:
+        p.kill()
+    assert head["nq"] == 50 and head["k"] == 10 and head["binary"]["dists"] is None
+    assert torch.cuda.get_device_name(0) in err and "scan_topk" in err, err
+    assert served_launches(err)["scan_topk"] > 0, err
+    idx = Index.load(path, device=cuda)
+    np.testing.assert_array_equal(head["ids"], idx.search(Q, k=10).ids.cpu().numpy())
+    np.testing.assert_array_equal(np.asarray(r2["ids"]), idx.search(Q[:5], k=3).ids.cpu().numpy())

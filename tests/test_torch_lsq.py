@@ -109,7 +109,7 @@ def test_checkpoint_jax_save_loads_in_port_and_encodes_identically(tmp_path):
     X, jmodel = _small_model()
     path = os.path.join(tmp_path, "jax_lsq.npz")
     jckpt.save_model(path, jmodel)
-    model = tckpt.load_model(path)
+    model = tckpt.load_model(path, device="cpu")
     assert isinstance(model, LSQModel)
     for f in LSQModel._fields:
         np.testing.assert_array_equal(np.asarray(getattr(model, f)),
