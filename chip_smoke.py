@@ -118,6 +118,30 @@ nothing of JAX. Phases:
    process, its ids and distances identical to the served ones bit for bit
    (parity only), and the saved directory reloaded (n = 1,009,990, its
    codes the replay's, the added rows found).
+4f. path F, the rest of the quantizer family, on path A's corpus and
+   results (counters zeroed first; K1, K2 and K3 must each launch):
+   F1 `update_codebooks(method="lsqr")` on path A's final training codes
+   against "cholesky" (qerror within x (1 + 1e-3), two LSQR solves bit for
+   bit, each timed), SLSQ's prox solve from the Cholesky codebooks into
+   0.7 of their L1 norm (inside the ball, two solves bit for bit, timed),
+   then LSQ trained with LSQR (niter=10, ilsiter=8,
+   "auto" = K1) from path A's ChainQ, an LSQ-16 base encode and the k=1000
+   query (K2), recall@10 within 0.03 of path A's; F2 `Index.build("rvq")`
+   (m=7 + norm byte, h=256, niter=10): `quantize_rvq` of the training set
+   gives the training codes, a k=1000 search identical to
+   `scan_topk_reference` on the same LUTs, save -> load searches alike, add
+   of 10,000 rows found by their own vectors (>= 99% in their top-1000);
+   F3 the `repro_paper` twin in process on path A's corpus (written as its
+   corpus cache): PQ, OPQ, ChainQ, LSQ-16, LSQ-32, RVQ, SLSQ1, SLSQ2 at
+   niter=10 with the twin's own ordering check, SLSQ l0 within S and
+   SLSQ1's below dense; then the `diag_normbyte` twin on its stage cache
+   (two 1M-row scans on K2); F4 the demo twins (`demo_pq_torch`,
+   `demo_opq_torch`, `demo_chainq_torch`, `demo_lsq_sparse_torch`) and
+   the `calibrate_corpus` and `diag_flip` twins at 2000 train, 20,000
+   base, 200 queries, each recall curve never decreasing (a run-only
+   check: LSQ over-fits 2000 training vectors, so these curves do not
+   hold the twins' numbers to anything). Prints each
+   part's wall time, path F's and the whole script's.
 
 Prints the kernels' JSON line and then, last, the device line. Any failed
 check exits non-zero before those lines are printed. Every time is printed
@@ -1185,6 +1209,7 @@ def drive_path(torch, demo, data, dev, label, mode, init):
           f"path {label}: query results differ from the plain version")
     print(f"path {label}: checks passed (objectives fall OPQ > ChainQ > LSQ, accept "
           "invariant, recall curve, plain-version agreement on 32 queries)")
+    info["lsq"] = lsq
     return launches, info, rec
 
 
@@ -1781,9 +1806,242 @@ def phase_cli(torch, data, dev, recall_c):
     return {name: served_a[name] + served_b[name] for name in COUNTED}
 
 
+# Path F: the rest of the quantizer family on path A's corpus and results:
+# LSQR codebook updates, RVQ through Index, the paper's 64-bit table
+# (`repro_paper` twin) and the small twins at the verify recipe's sizes.
+SMALL = ["--dataset", "synthetic", "--ntrain", "2000", "--nbase", "20000",
+         "--nquery", "200"]
+SMALL_SIZES = ["2000", "20000", "200", "10"]
+
+
+def timed(torch, fn):
+    """(fn(), seconds) with the device idle at both ends."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def path_f1(torch, demo, data, dev, path_a):
+    """LSQR against Cholesky on path A's final training codes, two LSQR
+    solves bit for bit, the prox solve twice, then LSQ trained with LSQR from path A's ChainQ
+    ("auto": K1), an LSQ-16 base encode and the k=1000 query (K2)."""
+    from local_search_quantization_torch.ops.costs import qerror
+    from local_search_quantization_torch.ops.prox import solve_l1_constrained
+    from local_search_quantization_torch.ops.solver import update_codebooks
+    from local_search_quantization_torch.utils.config import LSQConfig
+
+    x_train = data[0]
+    X = torch.as_tensor(x_train, device=dev)
+    B = path_a["lsq"].B
+    C_l, s_l = timed(torch, lambda: update_codebooks(X, B, H, method="lsqr"))
+    C_l2, s_l2 = timed(torch, lambda: update_codebooks(X, B, H, method="lsqr"))
+    C_c, s_c = timed(torch, lambda: update_codebooks(X, B, H, method="cholesky"))
+    e_l, e_c = float(qerror(X, B, C_l)), float(qerror(X, B, C_c))
+    print(f"[{CARD}] path F1: update_codebooks on path A's codes (n={X.shape[0]}, d={D}, "
+          f"m={M}, h={H}): lsqr {s_l * 1e3:.3f} ms, again {s_l2 * 1e3:.3f} ms, cholesky "
+          f"{s_c * 1e3:.3f} ms; qerror lsqr {e_l:.6e}, cholesky {e_c:.6e} "
+          f"(ratio {e_l / e_c:.6f}); two lsqr solves identical: {torch.equal(C_l, C_l2)}")
+    check(e_l <= e_c * (1 + 1e-3), "path F1: LSQR qerror above Cholesky's x (1 + 1e-3)")
+    check(torch.equal(C_l, C_l2), "path F1: two LSQR solves differ")
+    # SLSQ's prox solve (100 FISTA steps) from the Cholesky codebooks into
+    # the ball of 0.7 of their L1 norm, as SLSQ1's tau, twice.
+    tau = torch.sum(torch.abs(C_c)) * 0.7
+    K_p, s_p = timed(torch, lambda: solve_l1_constrained(B, X, H, tau, C_c))
+    K_p2, s_p2 = timed(torch, lambda: solve_l1_constrained(B, X, H, tau, C_c))
+    l1 = float(torch.sum(torch.abs(K_p)))
+    print(f"[{CARD}] path F1: solve_l1_constrained (100 FISTA steps) {s_p * 1e3:.3f} ms, "
+          f"again {s_p2 * 1e3:.3f} ms; ||K||_1 {l1:.6e} of tau {float(tau):.6e}, qerror "
+          f"{float(qerror(X, B, K_p)):.6e}; two solves identical: {torch.equal(K_p, K_p2)}")
+    check(l1 <= float(tau) * (1 + 1e-5), "path F1: the prox solve left the L1 ball")
+    check(torch.equal(K_p, K_p2), "path F1: two prox solves differ")
+
+    args = demo.parse_args([
+        "--dataset", "synthetic", "--ntrain", str(MAIN["ntrain"]),
+        "--nbase", str(MAIN["nbase"]), "--nquery", str(MAIN["nquery"]),
+        "--m", str(M), "--h", str(H), "--niter", str(MAIN["niter"]),
+        "--ilsiter-base", str(MAIN["ilsiter_base"]), "--knn", str(K),
+        "--synth-d", str(D), "--device", "cuda"])
+    cfg = LSQConfig(m=M, h=H, niter=MAIN["niter"], ilsiter=8, seed=args.seed,
+                    condition_mode="auto", codebook_method="lsqr")
+    lsq, info = demo.train(args, cfg, x_train, dev, init=path_a["info"])
+    out = demo.run_pipeline_tail(args, lsq, cfg, data[1], data[2], data[3], dev)
+    rec = out["milestones"][MAIN["ilsiter_base"]]["recall"]
+    rec_a = path_a["recall"]
+    print(f"[{CARD}] path F1: LSQ (lsqr) train {info['lsq_s']:.3f} s (path A, cholesky: "
+          f"{path_a['info']['lsq_s']:.3f} s), obj {lsq.obj[0]:.6e} -> {lsq.obj[-1]:.6e} "
+          f"(path A {path_a['lsq'].obj[-1]:.6e}); base encode {out['encode_s']:.3f} s")
+    print("path F1: recall lsqr vs path A: " + ", ".join(
+        f"r@{n} {rec[n - 1]:.4f} vs {rec_a[n - 1]:.4f}" for n in (1, 10, 100, 1000)
+        if n <= K))
+    check(bool(lsq.obj[-1] < lsq.obj[0]), "path F1: the LSQR-trained objective did not fall")
+    check(bool((rec[1:] >= rec[:-1]).all()), "path F1: recall curve decreases")
+    check(abs(rec[9] - rec_a[9]) <= 0.03,
+          f"path F1: recall@10 {rec[9]:.4f} not within 0.03 of path A's {rec_a[9]:.4f}")
+
+
+def path_f2(torch, data, dev):
+    """RVQ through Index: build, the training codes re-encoded, a k=1000
+    search against the plain scan, save -> load, add."""
+    from local_search_quantization_torch.index import Index
+    from local_search_quantization_torch.models import quantize_rvq
+    from local_search_quantization_torch.ops import select_kernels
+    from local_search_quantization_torch.utils.eval import eval_recall
+
+    x_train, x_base, x_query, gt = data
+    idx, s_build = timed(torch, lambda: Index.build(x_train, x_base, "rvq", m=M, h=H,
+                                                    niter=MAIN["niter"], seed=0, device=dev))
+    X = torch.as_tensor(x_train, device=dev)
+    same_train = torch.equal(quantize_rvq(X, idx.model.C), idx.model.B)
+    Q = torch.as_tensor(x_query, device=dev)
+    res = idx.search(Q, k=K)
+    ms_search = cuda_ms(torch, lambda: idx.search(Q, k=K), 5)
+    rec = eval_recall(gt, res.ids.cpu().numpy(), K, verbose=False)
+    Bt = torch.as_tensor(idx.B, device=dev).t().to(torch.uint8).contiguous()
+    dbn = torch.as_tensor(idx._dbn, device=dev)
+    rd, ri = select_kernels.scan_topk_reference(idx._query_luts(Q).contiguous(), Bt, dbn, K)
+    plain = torch.equal(ri.long(), res.ids.long()) and torch.equal(rd, res.dists)
+    print(f"[{CARD}] path F2: Index.build('rvq', m={M}, h={H}, niter={MAIN['niter']}) of "
+          f"{x_base.shape[0]} rows in {s_build:.3f} s, stage obj {idx.model.obj[0]:.6e} -> "
+          f"{idx.model.obj[-1]:.6e}; quantize_rvq(train) = training codes: {same_train}; "
+          f"search (default route, K2) {ms_search:.3f} ms at k={K}, recall " + ", ".join(
+              f"@{n} {rec[n - 1]:.4f}" for n in (1, 10, 100, 1000) if n <= K)
+          + f"; ids and dists = scan_topk_reference: {plain}")
+    check(same_train, "path F2: quantize_rvq(train) differs from the training codes")
+    check(plain, "path F2: the RVQ search differs from the plain scan")
+    check(bool((rec[1:] >= rec[:-1]).all()) and rec[K - 1] > rec[0],
+          "path F2: recall curve decreases")
+    with tempfile.TemporaryDirectory() as path:
+        idx.save(path)
+        back = Index.load(path, device=dev)
+    again = back.search(Q, k=K)
+    check(back.method == "rvq" and torch.equal(again.ids, res.ids)
+          and torch.equal(again.dists, res.dists), "path F2: save -> load searches otherwise")
+    new = x_train[:10_000]
+    added, s_add = timed(torch, lambda: back.add(new))
+    found = back.search(torch.as_tensor(new, device=dev), k=K).ids.cpu().numpy()
+    hit = {k: float(np.mean([i in row[:k] for i, row in zip(added, found)]))
+           for k in (100, K)}
+    print(f"[{CARD}] path F2: save -> load: identical search; add of {len(added)} rows "
+          f"{s_add * 1e3:.1f} ms; found by their own vectors: {hit[100]:.4f} in their "
+          f"top-100, {hit[K]:.4f} in their top-{K}")
+    check(added == list(range(x_base.shape[0], x_base.shape[0] + 10_000)) and hit[K] >= 0.99,
+          "path F2: added rows not found by their own vectors")
+    return rec
+
+
+def path_f3(torch, data, dev, tmp):
+    """The `repro_paper` twin's 64-bit table on path A's corpus, then the
+    `diag_normbyte` twin on its stage cache."""
+    from local_search_quantization_torch.scripts import diag_normbyte, repro_paper
+
+    x_train, x_base, x_query, gt = data
+    corpus = os.path.join(tmp, "corpus.npz")
+    np.savez(corpus, train=x_train, base=x_base, query=x_query, gt=gt, seed=0)
+    stages = os.path.join(tmp, "stages")
+    argv = ["--dataset", "synthetic", "--ntrain", str(MAIN["ntrain"]),
+            "--nbase", str(MAIN["nbase"]), "--nquery", str(MAIN["nquery"]),
+            "--niter", str(MAIN["niter"]), "--h", str(H), "--synth-d", str(D),
+            "--milestones", "16,32",
+            "--with-chainq", "--with-rvq", "--with-slsq", "--stage-cache", stages,
+            "--corpus-cache", corpus, "--out", os.path.join(tmp, "table.json"),
+            "--device", dev.type]
+    t0 = time.perf_counter()
+    try:
+        table = repro_paper.main(argv)
+    except SystemExit as e:
+        fail(f"path F3: the repro_paper twin exited: {e}")
+    wall = time.perf_counter() - t0
+    rows = table["methods"]
+    print(f"[{CARD}] path F3: repro_paper twin {' '.join(argv[:-8])} in {wall:.3f} s "
+          f"(platform {table['platform']!r})")
+    for name, row in rows.items():
+        extra = (f", l0 {row['l0']} of S {row['S']} (dense {row['dense_l0']}), "
+                 f"l1 {row['l1']:.6e}" if "l0" in row else "")
+        print(f"  {name:<7} train_mse {row['train_mse']:.6e}, wall {row['wall_s']} s, "
+              + ", ".join(f"{n} {v:.4f}" for n, v in row["recall"].items()
+                          if n in ("r@1", "r@10", "r@100", "r@1000")) + extra)
+    want = ("PQ", "OPQ", "ChainQ", "LSQ-16", "LSQ-32", "RVQ", "SLSQ1", "SLSQ2")
+    check(all(name in rows for name in want), f"path F3: table rows {sorted(rows)}")
+    for name in want:
+        r = [rows[name]["recall"][f"r@{n}"] for n in (1, 10, 100, 1000) if n <= K]
+        check(all(np.isfinite(r)) and r == sorted(r), f"path F3: {name} recall {r}")
+    check(all(rows[v]["l0"] <= rows[v]["S"] for v in ("SLSQ1", "SLSQ2"))
+          and rows["SLSQ1"]["l0"] < rows["SLSQ1"]["dense_l0"],
+          "path F3: SLSQ sparsity out of its budget")
+    nb, s_nb = timed(torch, lambda: diag_normbyte.main([stages, corpus, "--device",
+                                                        dev.type]))
+    print(f"[{CARD}] path F3: diag_normbyte twin (two {x_base.shape[0]}-row scans, "
+          f"default route) {s_nb:.3f} s: " + "; ".join(f"{k}: {v}" for k, v in nb.items()))
+    check(nb["quantized(norm byte)"]["r@10"] == rows["LSQ-32"]["recall"]["r@10"],
+          "path F3: diag_normbyte's norm-byte scan is not the table's LSQ-32 row")
+    return rows
+
+
+def path_f4(dev):
+    """The small twins at the verify recipe's sizes, each recall curve
+    never decreasing."""
+    import demo_chainq_torch
+    import demo_lsq_sparse_torch
+    import demo_opq_torch
+    import demo_pq_torch
+
+    from local_search_quantization_torch.scripts import calibrate_corpus, diag_flip
+
+    small, on = SMALL + ["--device", dev.type], ["--device", dev.type]
+    runs = [("demo_pq_torch", lambda: {"curve": demo_pq_torch.main(small)}),
+            ("demo_opq_torch", lambda: {"curve": demo_opq_torch.main(small)}),
+            ("demo_chainq_torch", lambda: {"curve": demo_chainq_torch.main(small)}),
+            ("demo_lsq_sparse_torch", lambda: {"curve": demo_lsq_sparse_torch.main(
+                small + ["--m", "7", "--variant", "SLSQ2"])[1]}),
+            ("calibrate_corpus", lambda: calibrate_corpus.main(
+                ["0.4", *SMALL[2:], "--niter", "10", *on])[0]),
+            ("diag_flip", lambda: diag_flip.main(SMALL_SIZES + on))]
+    for name, fn in runs:
+        t0 = time.perf_counter()
+        out = fn()
+        curves = {k: (np.asarray(v) if k == "curve" else
+                      np.asarray([v[f"r@{n}"] for n in (1, 10, 100)]))
+                  for k, v in out.items() if k == "curve" or isinstance(v, dict)
+                  and "r@1" in v}
+        print(f"[{CARD}] path F4: {name} {time.perf_counter() - t0:.3f} s: " + "; ".join(
+            f"{k} r@1 {c[0]:.4f} ... r@{c.shape[0] if k == 'curve' else 100} {c[-1]:.4f}"
+            for k, c in curves.items()))
+        check(bool(curves) and all(bool((np.diff(c) >= 0).all()) and c[-1] > 0
+                                   for c in curves.values()),
+              f"path F4: {name}: a recall curve decreases or stays at 0")
+
+
+def phase_family(torch, demo, data, dev, path_a):
+    """Path F: F1 LSQR, F2 RVQ through Index, F3 the paper table, F4 the
+    small twins; K1, K2 and K3 must each launch."""
+    torch.cuda.synchronize()
+    zero_counters()
+    t0 = time.perf_counter()
+    path_f1(torch, demo, data, dev, path_a)
+    t1 = time.perf_counter()
+    path_f2(torch, data, dev)
+    t2 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        path_f3(torch, data, dev, tmp)
+    t3 = time.perf_counter()
+    path_f4(dev)
+    torch.cuda.synchronize()
+    t4 = time.perf_counter()
+    launches = read_counters()
+    print(f"[{CARD}] path F: F1 {t1 - t0:.3f} s, F2 {t2 - t1:.3f} s, F3 {t3 - t2:.3f} s, "
+          f"F4 {t4 - t3:.3f} s, wall {t4 - t0:.3f} s")
+    print(f"path F: kernel launches {launches}")
+    check(all(launches[n] > 0 for n in ("ils_encode", "scan_topk", "scan_select")),
+          f"path F: a kernel of the path never launched: {launches}")
+    return launches
+
+
 def phase_main(torch, demo, data, dev):
     """Path A ("auto": K1 and K2), then path B ("fused": K5 and K2) from
-    path A's OPQ/ChainQ models."""
+    path A's OPQ/ChainQ models. Returns both paths' launches and path A's
+    results (its models and recall curve)."""
     launches_a, info, rec_a = drive_path(torch, demo, data, dev, "A", "auto", None)
     check(launches_a["ils_encode"] > 0 and launches_a["scan_topk"] > 0,
           f"path A: a kernel of the path never launched: {launches_a}")
@@ -1793,7 +2051,7 @@ def phase_main(torch, demo, data, dev):
     check(launches_b["ils_encode"] == 0, f"path B ran K1: {launches_b}")
     print("recall A (auto) vs B (fused): " + ", ".join(
         f"r@{n} {rec_a[n - 1]:.4f} vs {rec_b[n - 1]:.4f}" for n in (1, 10, 100, 1000)))
-    return launches_a, launches_b
+    return (launches_a, launches_b), {"info": info, "lsq": info["lsq"], "recall": rec_a}
 
 
 def main() -> int:
@@ -1814,6 +2072,7 @@ def main() -> int:
     import demo_lsq_torch as demo
 
     global CARD
+    t_script = time.perf_counter()
     dev = torch.device("cuda")
     card = CARD = phase_environment(torch, _build)
     t0 = time.perf_counter()
@@ -1831,9 +2090,11 @@ def main() -> int:
     k3, t0, cap = phase_k3(torch, k2_inputs, practical.pop("l2_gbps"))
     k4 = phase_k4(torch, k2_inputs, t0, cap)
     del k2_inputs
-    paths = [*phase_main(torch, demo, data, dev)]
+    launches_ab, path_a = phase_main(torch, demo, data, dev)
     launches_c, recall_c = phase_serving(torch, data, dev)
-    paths += [launches_c, phase_bench_path(torch, dev), phase_cli(torch, data, dev, recall_c)]
+    paths = [*launches_ab, launches_c, phase_bench_path(torch, dev),
+             phase_cli(torch, data, dev, recall_c),
+             phase_family(torch, demo, data, dev, path_a)]
     # Each kernel's count summed over the paths that run it (K6 is on none).
     launches = {name: sum(p[name] for p in paths) for name in COUNTED}
 
@@ -1860,6 +2121,7 @@ def main() -> int:
     for entry in kernels:
         if entry["name"] in practical:
             entry["practical_bound_ms"] = practical[entry["name"]]
+    print(f"[{CARD}] chip_smoke: whole script wall {time.perf_counter() - t_script:.3f} s")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -35,7 +35,7 @@ import torch
 
 from local_search_quantization_torch.ops import adc
 from local_search_quantization_torch.utils import checkpoint as ckpt
-from local_search_quantization_torch.utils.device import entry_device
+from local_search_quantization_torch.utils.device import encode_in_chunks, entry_device
 
 _METHODS = ("pq", "opq", "chainq", "lsq", "rvq")
 _ENCODE_CHUNK = 1 << 16
@@ -61,17 +61,15 @@ def _not_ported(what: str, module: str) -> NotImplementedError:
 
 
 def _encode_chunked(fn, X, device) -> np.ndarray:
-    """fn over `_ENCODE_CHUNK`-row pieces of X moved to `device`; host codes."""
-    out = [_host(fn(torch.as_tensor(X[s:s + _ENCODE_CHUNK]).to(device, torch.float32)))
-           for s in range(0, X.shape[0], _ENCODE_CHUNK)]
-    return np.concatenate(out).astype(np.int32)
+    """fn over `_ENCODE_CHUNK`-row pieces of X on `device`; host int32 codes."""
+    return encode_in_chunks(fn, X, device, chunk=_ENCODE_CHUNK, host=True)
 
 
 class Index:
     """A frozen quantizer model + mutable codes, searchable and persistable.
 
     Attributes:
-      method: one of "pq", "opq", "chainq", "lsq" ("rvq" is not ported).
+      method: one of "pq", "opq", "chainq", "lsq", "rvq".
       model: the trained model NamedTuple, its tensors on `device`.
       B: [n, m] host codes (int32, or uint8 after load when h <= 256).
       meta: provenance dict (build args, bit budget).
@@ -82,8 +80,6 @@ class Index:
                  meta: dict | None = None, device=None):
         if method not in _METHODS:
             raise ValueError(f"method must be one of {_METHODS}, got {method}")
-        if method == "rvq":
-            raise _not_ported("RVQ", "RVQ")
         if device is None:
             device = next((v.device for v in model if isinstance(v, torch.Tensor)),
                           torch.device("cpu"))
@@ -113,7 +109,7 @@ class Index:
             if bnorm is None:
                 raise ValueError(f"{method} needs bnorm norm codes")
             self._cbnorms = (_host(self.model.cbnorms).astype(np.float32)
-                             if method == "lsq" else self._meta_cbnorms())
+                             if method in ("lsq", "rvq") else self._meta_cbnorms())
             self._bnorm_buf = _host(bnorm)
             self._dbn_buf = self._cbnorms[self._bnorm_buf].astype(np.float32)
             self._dbn_buf[self._tomb_buf] = np.inf
@@ -191,18 +187,17 @@ class Index:
         base encode runs condition mode "auto" (K1 on a GPU).
         """
         from local_search_quantization_torch.models import (
-            quantize_opq, quantize_pq, train_chainq, train_lsq, train_opq, train_pq,
+            quantize_opq, quantize_pq, quantize_rvq, train_chainq, train_lsq, train_opq,
+            train_pq, train_rvq,
         )
         from local_search_quantization_torch.ops import icm, norms, viterbi
         from local_search_quantization_torch.utils.config import (
-            ChainQConfig, LSQConfig, OPQConfig, PQConfig,
+            ChainQConfig, LSQConfig, OPQConfig, PQConfig, RVQConfig,
         )
         from local_search_quantization_torch.utils.synth import random_codes
 
         if method not in _METHODS:
             raise ValueError(f"method must be one of {_METHODS}, got {method}")
-        if method == "rvq":
-            raise _not_ported("RVQ", "RVQ")
         if refine not in (None, "sq8", "f32"):
             raise ValueError(f"refine must be None, 'sq8' or 'f32', got {refine!r}")
         if sr not in ("none", "SR-D", "SR-C"):
@@ -215,7 +210,7 @@ class Index:
             raise ValueError(f"sr_scale={sr_scale} has no effect with sr='none': "
                              "pass sr='SR-C' or sr='SR-D'")
         device = entry_device(device)
-        additive = method in ("chainq", "lsq")
+        additive = method in ("chainq", "lsq", "rvq")
         if m is None:
             m = 7 if additive else 8
         x_train = np.asarray(x_train, np.float32)
@@ -241,6 +236,11 @@ class Index:
             # ChainQModel carries no norm codebook; it is stashed in meta.
             meta["cbnorms"] = _host(cbn).tolist()
             bnorm = _host(norms.quantize_norms(B, model.C, cbn))
+        elif method == "rvq":
+            model = train_rvq(X, RVQConfig(m=m, h=h, kmeans_maxiter=max(25, niter),
+                                           seed=seed), verbose=verbose)
+            B = _encode_chunked(lambda x: quantize_rvq(x, model.C), x_base, device)
+            bnorm = _host(norms.quantize_norms(B, model.C, model.cbnorms))
         else:  # lsq
             opq = train_opq(X, OPQConfig(m=m, h=h, niter=niter, seed=seed))
             chain = train_chainq(X, opq.B, opq.R, ChainQConfig(m=m, h=h, niter=niter))
@@ -287,8 +287,6 @@ class Index:
         device = entry_device(device)
         with open(os.path.join(path, "meta.json")) as f:
             meta = json.load(f)
-        if meta["method"] == "rvq":
-            raise _not_ported("RVQ", "RVQ")
         model = ckpt.load_model(os.path.join(path, "model.npz"), device)
         codes = ckpt.load_codes(os.path.join(path, "codes.npz"))
         B = codes["B"]
@@ -388,7 +386,7 @@ class Index:
 
     @property
     def additive(self) -> bool:
-        return self.method in ("chainq", "lsq")
+        return self.method in ("chainq", "lsq", "rvq")
 
     @property
     def n(self) -> int:
@@ -621,7 +619,9 @@ class Index:
         codes, with a generator seeded by the persisted counter `add_seq`,
         so delete + compact + add never repeats a seed.
         """
-        from local_search_quantization_torch.models import quantize_opq, quantize_pq
+        from local_search_quantization_torch.models import (
+            quantize_opq, quantize_pq, quantize_rvq,
+        )
         from local_search_quantization_torch.ops import icm, norms, viterbi
         from local_search_quantization_torch.utils.synth import random_codes
 
@@ -638,6 +638,8 @@ class Index:
         elif self.method == "chainq":
             Bn = _encode_chunked(lambda x: viterbi.viterbi_encode(x @ model.R, model.C),
                                  X, self.device)
+        elif self.method == "rvq":
+            Bn = _encode_chunked(lambda x: quantize_rvq(x, model.C), X, self.device)
         else:  # lsq
             m, h = self.meta["m"], self.meta["h"]
             seq = int(self.meta.get("add_seq", 0))

@@ -5,8 +5,11 @@ implicit [n, m*h] design, solve (A^T A + lambda I) K = A^T X for all d
 columns at once (solver.py:39-98,201-225). The structured updates (chain,
 and any dimension-to-codebook coverage; solver.py:233-375) split the problem
 into smaller dense solves. The one-hot products are plain matrix products
-(the JAX package leaves them to XLA); every solve is a Cholesky
+(the JAX package leaves them to XLA); every dense solve is a Cholesky
 factorization with the same relative ridge, lambda = ridge * trace(G) / rows.
+Method "lsqr" is the matrix-free batched LSQR of solver.py:101-198: all d
+columns iterate in lockstep, A @ V a gather-sum and A^T @ U a chunked
+one-hot product (no atomics, so a solve is bit-identical run to run).
 """
 
 from __future__ import annotations
@@ -18,6 +21,19 @@ import torch.nn.functional as F
 from local_search_quantization_torch.ops.costs import subspace_slices
 
 
+def _onehot_chunks(B: torch.Tensor, h: int, chunk: int):
+    """Yield (s, oh): the [<=chunk, m*h] one-hot of rows s:s+chunk of the
+    design A, chunks in row order. `code_gram` and `_At_matvec` both
+    accumulate over these chunks, so both sum in this one fixed order."""
+    n, m = B.shape
+    offs = torch.arange(m, device=B.device) * h
+    for s in range(0, n, chunk):
+        b = B[s:s + chunk].long() + offs[None, :]
+        oh = torch.zeros((b.shape[0], m * h), dtype=torch.float32, device=B.device)
+        oh.scatter_(1, b, 1.0)
+        yield s, oh
+
+
 def code_gram(B: torch.Tensor, X: torch.Tensor, h: int, *,
               chunk: int = 1 << 13) -> tuple[torch.Tensor, torch.Tensor]:
     """G = A^T A [m*h, m*h] and A^T X [m*h, d], accumulated over n-chunks.
@@ -25,15 +41,10 @@ def code_gram(B: torch.Tensor, X: torch.Tensor, h: int, *,
     Row/column i*h + a of G is codebook i's code a, so block (i, j) counts
     joint code assignments of codebooks i and j.
     """
-    n, m = B.shape
-    mh = m * h
+    mh = B.shape[1] * h
     G = torch.zeros((mh, mh), dtype=torch.float32, device=X.device)
     AtX = torch.zeros((mh, X.shape[1]), dtype=torch.float32, device=X.device)
-    offs = torch.arange(m, device=X.device) * h
-    for s in range(0, n, chunk):
-        b = B[s:s + chunk].long() + offs[None, :]
-        oh = torch.zeros((b.shape[0], mh), dtype=torch.float32, device=X.device)
-        oh.scatter_(1, b, 1.0)
+    for s, oh in _onehot_chunks(B, h, chunk):
         G += oh.T @ oh
         AtX += oh.T @ X[s:s + chunk]
     return G, AtX
@@ -60,19 +71,94 @@ def _solve_cholesky(B: torch.Tensor, X: torch.Tensor, h: int,
     return _ridge_solve(G, AtX, ridge).reshape(m, h, X.shape[1])
 
 
+def _A_matvec(V: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
+    """A @ V for V [m, h, d] -> [n, d]: the additive reconstruction, summed
+    over the codebooks in order."""
+    B = B.long()
+    out = V[0][B[:, 0]]
+    for i in range(1, B.shape[1]):
+        out = out + V[i][B[:, i]]
+    return out
+
+
+def _At_matvec(U: torch.Tensor, B: torch.Tensor, h: int, *,
+               chunk: int = 1 << 13) -> torch.Tensor:
+    """A^T @ U for U [n, d] -> [m, h, d]: oh^T @ U per one-hot chunk of
+    `_onehot_chunks`, accumulated over the chunks in order."""
+    m = B.shape[1]
+    d = U.shape[1]
+    acc = torch.zeros((m * h, d), dtype=torch.float32, device=U.device)
+    for s, oh in _onehot_chunks(B, h, chunk):
+        acc += oh.T @ U[s:s + chunk]
+    return acc.reshape(m, h, d)
+
+
+def _solve_lsqr(B: torch.Tensor, X: torch.Tensor, h: int,
+                niter: int = 32) -> torch.Tensor:
+    """Batched matrix-free LSQR (Paige & Saunders) over all d right-hand
+    sides at once: each column keeps its own Golub-Kahan scalars as a [d]
+    lane, and the loop holds no host sync.
+
+    A column freezes for good once its step |phi| falls below 1e-6 of its
+    ||b|| (solver.py:182-190): A is rank-deficient (each one-hot block of a
+    row sums to 1), so after ~rank(A) steps |phi| decays to round-off and
+    then regrows from lost orthogonality.
+    """
+    m = B.shape[1]
+    d = X.shape[1]
+    X = X.to(torch.float32)
+    eps = 1e-12
+
+    def norm(v, dims):
+        return torch.sqrt(torch.sum(v * v, dim=dims))
+
+    beta = norm(X, 0)  # [d]
+    U = X / torch.clamp(beta, min=eps)[None, :]
+    V = _At_matvec(U, B, h)  # [m, h, d]
+    alpha = norm(V, (0, 1))
+    V = V / torch.clamp(alpha, min=eps)[None, None, :]
+    W = V
+    K = torch.zeros((m, h, d), dtype=torch.float32, device=X.device)
+    phibar, rhobar = beta, alpha
+    beta0 = beta  # ||b|| per column, for the relative freeze
+    active = torch.ones((d,), dtype=torch.bool, device=X.device)
+    for _ in range(niter):
+        # beta_{i+1} u_{i+1} = A v_i - alpha_i u_i
+        U = _A_matvec(V, B) - alpha[None, :] * U
+        beta = norm(U, 0)
+        U = U / torch.clamp(beta, min=eps)[None, :]
+        # alpha_{i+1} v_{i+1} = A^T u_{i+1} - beta_{i+1} v_i
+        V = _At_matvec(U, B, h) - beta[None, None, :] * V
+        alpha = norm(V, (0, 1))
+        V = V / torch.clamp(alpha, min=eps)[None, None, :]
+        # Givens rotation of the bidiagonal system.
+        rho = torch.sqrt(rhobar * rhobar + beta * beta)
+        c = rhobar / torch.clamp(rho, min=eps)
+        s = beta / torch.clamp(rho, min=eps)
+        theta = s * alpha
+        rhobar = -c * alpha
+        phi = c * phibar
+        active = active & (torch.abs(phi) > 1e-6 * beta0)
+        phi = torch.where(active, phi, torch.zeros_like(phi))
+        phibar = s * phibar
+        K = K + (phi / torch.clamp(rho, min=eps))[None, None, :] * W
+        W = V - (theta / torch.clamp(rho, min=eps))[None, None, :] * W
+    return K
+
+
 def update_codebooks(X: torch.Tensor, B: torch.Tensor, h: int, *,
                      method: str = "cholesky", ridge: float = 1e-4,
                      niter: int = 32) -> torch.Tensor:
     """Full (unstructured) codebook update. Returns C [m, h, d].
 
-    Only "cholesky" (the config default) is ported; "lsqr"/"lsmr" raise.
+    method: "cholesky" (normal equations + relative ridge) or "lsqr"
+    (`niter` batched LSQR steps); "lsmr" is an alias of "lsqr", as in the
+    JAX package (solver.py:211-216).
     """
     if method == "cholesky":
         return _solve_cholesky(B, X, h, ridge)
     if method in ("lsqr", "lsmr"):
-        raise NotImplementedError(
-            f"codebook method {method!r} is not ported yet (module batched "
-            "LSQR; ROADMAP.md, modules to port); use 'cholesky'")
+        return _solve_lsqr(B, X, h, niter)
     raise ValueError(f"unknown codebook update method: {method!r}")
 
 

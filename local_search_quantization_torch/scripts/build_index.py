@@ -38,7 +38,7 @@ def main(argv=None) -> None:
     ap.add_argument("--nbase", type=int, default=1_000_000)
     ap.add_argument("--m", type=int, default=None,
                     help="codebooks; default 8 (pq/opq) or 7+norm byte "
-                         "(chainq/lsq) = 64-bit codes")
+                         "(chainq/lsq/rvq) = 64-bit codes")
     ap.add_argument("--h", type=int, default=256)
     ap.add_argument("--niter", type=int, default=10)
     ap.add_argument("--ilsiter", type=int, default=16,

@@ -13,8 +13,8 @@ import torch
 from local_search_quantization_torch.utils.device import entry_device
 
 _INT_FIELDS = ("B", "B_norms")
-# Fields kept as float32 ndarrays on the host (objective traces).
-_HOST_FIELDS = ("obj",)
+# Fields kept as float32 ndarrays on the host (objective and sparsity traces).
+_HOST_FIELDS = ("obj", "l0", "l1")
 
 
 def _registry() -> dict[str, type]:
@@ -23,9 +23,12 @@ def _registry() -> dict[str, type]:
         LSQModel,
         OPQModel,
         PQModel,
+        RVQModel,
+        SLSQModel,
     )
 
-    return {cls.__name__: cls for cls in (PQModel, OPQModel, ChainQModel, LSQModel)}
+    return {cls.__name__: cls for cls in (PQModel, OPQModel, ChainQModel, LSQModel,
+                                          RVQModel, SLSQModel)}
 
 
 def model_to_numpy(model) -> dict[str, np.ndarray]:

@@ -242,7 +242,9 @@ def _port_files():
     for dirpath, _, files in os.walk(PACKAGE):
         out += [os.path.relpath(os.path.join(dirpath, f), ROOT)
                 for f in files if f.endswith(".py")]
-    return sorted(out) + ["chip_smoke.py"]
+    demos = sorted(os.path.join("demos", f) for f in os.listdir(os.path.join(ROOT, "demos"))
+                   if f.endswith("_torch.py"))
+    return sorted(out) + demos + ["chip_smoke.py"]
 
 
 FORBIDDEN = ("jax", "jaxlib", "local_search_quantization_tpu", "bench", "benchmarks")

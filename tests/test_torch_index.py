@@ -40,7 +40,7 @@ def jax_dirs(data, tmp_path_factory):
     """Directories written by the JAX package's Index.build + save."""
     xt, xb, _ = data
     out = {}
-    for method in ("pq", "lsq"):
+    for method in ("pq", "lsq", "rvq"):
         path = str(tmp_path_factory.mktemp(f"jax_{method}"))
         JIndex.build(xt, xb, method, refine="f32", **BUILD).save(path)
         out[method] = path
@@ -53,7 +53,7 @@ def _assert_same_search(jres, tres):
                                rtol=1e-5, atol=1e-4)
 
 
-@pytest.mark.parametrize("method", ["pq", "lsq"])
+@pytest.mark.parametrize("method", ["pq", "lsq", "rvq"])
 def test_jax_index_directory_loads_in_the_port(data, jax_dirs, method):
     _, _, xq = data
     ji = JIndex.load(jax_dirs[method])
@@ -72,7 +72,7 @@ def test_jax_index_directory_loads_in_the_port(data, jax_dirs, method):
     assert ti.search(xq, k=K, refine=3).ids.dtype == torch.int64
 
 
-@pytest.mark.parametrize("method", ["pq", "lsq"])
+@pytest.mark.parametrize("method", ["pq", "lsq", "rvq"])
 def test_port_index_directory_loads_in_jax(data, tmp_path, method):
     xt, xb, xq = data
     ti = TIndex.build(xt, xb, method, refine="sq8", device="cpu", **BUILD)
@@ -136,9 +136,32 @@ def test_lsq_add_encodes_with_a_persisted_seed_and_finds_the_rows(data, jax_dirs
     assert TIndex.load(str(tmp_path), device="cpu").meta["add_seq"] == 1
 
 
+def test_rvq_add_delete_keep_jax_codes_and_ids(data, jax_dirs, tmp_path):
+    """The same add and delete on a JAX-written RVQ index in both packages
+    (RVQ's encoder is deterministic): identical codes, norm codes and ids;
+    each added row is found by its own vector; a saved directory of the
+    port's reloads in JAX with the added rows."""
+    _, xb, xq = data
+    ji, ti = JIndex.load(jax_dirs["rvq"]), TIndex.load(jax_dirs["rvq"], device="cpu")
+    assert ti.method == "rvq" and ti.additive
+    new = xb[:40] + 0.01
+    assert ji.add(new) == ti.add(new) == list(range(1500, 1540))
+    np.testing.assert_array_equal(ti.B, ji.B)
+    np.testing.assert_array_equal(ti._bnorm, np.asarray(ji._bnorm))
+    found = ti.search(new, k=20).ids.numpy()
+    assert np.mean([i in row for i, row in zip(range(1500, 1540), found)]) >= 0.9
+    gone = np.arange(1500, 1510)
+    assert ji.delete(gone) == ti.delete(gone) == 10
+    _assert_same_search(ji.search(xq, k=K, refine=2), ti.search(xq, k=K, refine=2))
+    ti.save(str(tmp_path))
+    back = JIndex.load(str(tmp_path))
+    assert back.method == "rvq" and back.n == 1540
+    _assert_same_search(back.search(xq, k=K), ti.search(xq, k=K))
+
+
 def test_not_ported_surfaces_raise(data, jax_dirs, tmp_path):
-    """The mesh and RVQ still raise by the name of their module; IVF, which
-    once did, works: a partition built by the JAX package loads, searches to
+    """The mesh still raises by the name of its module; RVQ and IVF, which
+    once did, work (RVQ: the cross-load and mutation tests); IVF: a partition built by the JAX package loads, searches to
     the same ids, and survives a save."""
     xt, xb, xq = data
     ti = TIndex.load(jax_dirs["pq"], device="cpu")
@@ -146,8 +169,6 @@ def test_not_ported_surfaces_raise(data, jax_dirs, tmp_path):
         ti.search(xq, k=K, nprobe=4)
     with pytest.raises(NotImplementedError, match="module parallel/"):
         ti.search(xq, k=K, mesh=object())
-    with pytest.raises(NotImplementedError, match="module RVQ"):
-        TIndex.build(xt, xb, "rvq", device="cpu", **BUILD)
     ti.build_ivf(16, sample=1500, iters=2)
     assert ti.ivf.nlist == 16 == ti.meta["ivf_nlist"]
     full = ti.search(xq, k=K, nprobe=16)

@@ -3,7 +3,6 @@ feature, never a queue number of ROADMAP.md: the queues are renumbered each
 time the roadmap is rewritten, so a number goes stale where a name does not.
 """
 
-import json
 import re
 
 import numpy as np
@@ -11,7 +10,6 @@ import pytest
 import torch
 
 from local_search_quantization_torch.index import Index
-from local_search_quantization_torch.ops.solver import update_codebooks
 
 torch.set_num_threads(1)
 
@@ -25,28 +23,11 @@ def index():
     return Index.build(xt, xt[:120], "pq", m=2, h=8, niter=1, seed=0, device="cpu")
 
 
-def _saved(index, path, *, method):
-    index.save(str(path))
-    meta = json.loads((path / "meta.json").read_text())
-    meta["method"] = method
-    (path / "meta.json").write_text(json.dumps(meta))
-    return str(path)
-
-
 CASES = {
-    "Index(method='rvq')": lambda ix, tmp: Index("rvq", ix.model, ix.B, device="cpu"),
-    "Index.build('rvq')": lambda ix, tmp: Index.build(
-        np.zeros((8, 8), np.float32), np.zeros((8, 8), np.float32), "rvq", device="cpu"),
-    "Index.load of an RVQ index": lambda ix, tmp: Index.load(
-        _saved(ix, tmp, method="rvq"), device="cpu"),
     "search(mesh=)": lambda ix, tmp: ix.search(np.zeros((1, 8), np.float32), k=3,
                                                mesh=object()),
-    "update_codebooks(method='lsqr')": lambda ix, tmp: update_codebooks(
-        torch.zeros((4, 8)), torch.zeros((4, 2), dtype=torch.int64), 8, method="lsqr"),
 }
-MODULES = {"Index(method='rvq')": "RVQ", "Index.build('rvq')": "RVQ",
-           "Index.load of an RVQ index": "RVQ", "search(mesh=)": "parallel/",
-           "update_codebooks(method='lsqr')": "batched LSQR"}
+MODULES = {"search(mesh=)": "parallel/"}
 
 
 @pytest.mark.parametrize("case", sorted(CASES))

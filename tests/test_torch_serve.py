@@ -7,7 +7,8 @@ an in-process scan of the as-built codes, binary frames, the two fatal exits
 (and the stderr note before a drain), the protocol fuzz, and running the
 twins as files from a directory outside the repo (where the server's last
 stderr note, its requests' kernel launches, is all zeros). Beside it: `--mesh N`
-exits before "ready" naming parallel/, and without a GPU every twin exits
+exits before "ready" naming parallel/, `--method rvq` builds a directory the
+JAX package loads, and without a GPU every twin exits
 nonzero unless given `--device cpu`. One tiny index per method is built per
 module and copied for each test that mutates it.
 """
@@ -387,12 +388,21 @@ def test_serve_mesh_exits_before_ready_naming_parallel(built):
     assert "parallel/" in out.stderr and "not ported" in out.stderr
 
 
-def test_build_twin_refuses_rvq_as_not_ported(tmp_path):
-    out = subprocess.run(twin("build_index", "--method", "rvq", "--out",
-                              str(tmp_path / "rvq"), "--nbase", "500", *TINY),
-                         cwd=REPO, env=ENV, capture_output=True, text=True, timeout=600)
-    assert out.returncode != 0 and "RVQ is not ported" in out.stderr
-    assert not os.path.exists(tmp_path / "rvq")
+def test_build_twin_builds_an_rvq_directory_that_jax_loads(tmp_path):
+    """`--method rvq` builds (in process): m=2 + norm byte, and the JAX
+    package's Index loads the directory and returns the port's ids."""
+    from local_search_quantization_tpu.index import Index as JIndex
+    from local_search_quantization_torch.index import Index
+    from local_search_quantization_torch.scripts import build_index
+
+    out = str(tmp_path / "rvq")
+    build_index.main(["--method", "rvq", "--out", out, "--nbase", "500", *TINY])
+    ti = Index.load(out, device="cpu")
+    assert ti.method == "rvq" and ti.n == 500 and ti.meta["bits"] == 2 * 4 + 8
+    ji = JIndex.load(out)
+    q = np.random.default_rng(0).normal(size=(8, 16)).astype(np.float32)
+    np.testing.assert_array_equal(np.asarray(ji.search(q, k=5).ids),
+                                  ti.search(q, k=5).ids.numpy())
 
 
 @pytest.mark.parametrize("name", ["build_index", "serve", "eval_index"])
