@@ -142,6 +142,24 @@ nothing of JAX. Phases:
    check: LSQ over-fits 2000 training vectors, so these curves do not
    hold the twins' numbers to anything). Prints each
    part's wall time, path F's and the whole script's.
+4g. path G, the device mesh (`parallel/`) on the one card: [cuda:0] * 4,
+   and * 3 where the shard count does not divide n (counters zeroed first;
+   K1, K5, K2 and K3 must each launch). G1 on path A's corpus and codes:
+   `sharded_update_codebooks` against the single-device update (qerror
+   within 1e-5 relative, two calls bit for bit; 4 shards, and 3 with
+   n_valid over 2 pad rows), `sharded_ils_encode` "auto" (K1) and "fused"
+   (K5) from path A's codes (no row's cost rises, the mean falls), two
+   `make_lsq_train_step` steps (the mean cost not above x 1.001), and the
+   1M-row base encode through the sharded encode (its vec/s beside path
+   A's; mean cost within 1.01 of path A's). G2 on path C's index as built:
+   `search(mesh=)` at k=1000 over 4 and 3 shards, bf16, k=10000 and
+   refine return path C's ids and distances exactly (times beside path
+   C's, K2/K3 launches); nprobe with a mesh raises; the mesh cache is
+   reused, then rebuilt after a delete. G3: the serve twin with `--mesh N`
+   (N the card count) over path E's saved index answers JSON requests as
+   `search(mesh=)` in process, bit for bit, its own counts show K2; and
+   `--mesh N+1` exits nonzero before "ready". The shards share the card and
+   run one after another: no multi-GPU number is taken.
 
 Prints the kernels' JSON line and then, last, the device line. Any failed
 check exits non-zero before those lines are printed. Every time is printed
@@ -1210,6 +1228,8 @@ def drive_path(torch, demo, data, dev, label, mode, init):
     print(f"path {label}: checks passed (objectives fall OPQ > ChainQ > LSQ, accept "
           "invariant, recall curve, plain-version agreement on 32 queries)")
     info["lsq"] = lsq
+    info["encode_vec_per_s"] = out["encode_vec_per_s"]
+    info["base_error"] = ms["base_error"]
     return launches, info, rec
 
 
@@ -1247,16 +1267,16 @@ class Env:
                 os.environ[k] = v
 
 
-def search_route(torch, idx, Q, k, env, method, precision="f32", refine=None):
+def search_route(torch, idx, Q, k, env, method, precision="f32", refine=None, mesh=None):
     """One route over all queries, run twice; returns the second run's
     (result, seconds, reruns by certificate). method None is
-    `Index.search`; otherwise `adc.linscan_lsq` on the index's uploaded
-    codes with that topk_method."""
+    `Index.search` (over `mesh` when given); otherwise `adc.linscan_lsq` on
+    the index's uploaded codes with that topk_method."""
     from local_search_quantization_torch.ops import adc
 
     def run():
         if method is None:
-            return idx.search(Q, k=k, precision=precision, refine=refine)
+            return idx.search(Q, k=k, precision=precision, refine=refine, mesh=mesh)
         return adc.linscan_lsq(idx.B, Q, idx.model.C, idx._dbn, k=k,
                                precision=precision, topk_method=method,
                                device_state=idx._device_scan_state())
@@ -1339,8 +1359,10 @@ def check_ivf_mutations(torch, idx, Q, probe, gone, added):
 
 def phase_serving(torch, data, dev):
     """Path C: Index.build -> save -> load -> search on every route ->
-    refine -> delete, add, compact. Returns its kernel launch counts and the
-    default route's recall curve at k=1000."""
+    refine -> delete, add, compact. Returns its kernel launch counts, the
+    default route's recall curve at k=1000, and for path G the index as built
+    (never mutated), the queries and {label: (result, seconds)} of the
+    default route at f32, bf16, k=10000 and with refine."""
     from local_search_quantization_torch.index import Index
     from local_search_quantization_torch.ops import adc
     from local_search_quantization_torch.utils.eval import eval_recall
@@ -1404,11 +1426,11 @@ def phase_serving(torch, data, dev):
               ("tournament, store", {"LSQ_TPU_TOPK_STORE": "1"}, "tournament"),
               ("tournament, recompute", {"LSQ_TPU_TOPK_STORE": "0"}, "tournament"),
               ("exact", {}, "exact")]
-    results, recalls = {}, {}
+    results, recalls, times = {}, {}, {}
     for label, env, method in routes:
         res, s, reruns = search_route(torch, idx, Q, K, env, method)
         recalls[label] = report(label, res, s, reruns, K)
-        results[label] = res
+        results[label], times[label] = res, s
     base = results["default (K2)"]
     for label, res in results.items():
         check(torch.equal(res.ids, base.ids),
@@ -1426,7 +1448,7 @@ def phase_serving(torch, data, dev):
                                ("exact", {}, "exact")):
         res, s, reruns = search_route(torch, idx, Q, K, env, method, precision="bf16")
         report("bf16 " + label, res, s, reruns, K)
-        bf16[label] = res
+        bf16[label], times["bf16 " + label] = res, s
     check(all(torch.equal(r.ids, bf16["default (K2)"].ids) for r in bf16.values()),
           "path C: bf16 routes disagree")
     try:
@@ -1443,14 +1465,14 @@ def phase_serving(torch, data, dev):
                                 None)):
         res, s, reruns = search_route(torch, idx, Q, 10_000, env, method)
         report(label, res, s, reruns, 10_000)
-        deep[label] = res
+        deep[label], times["k10000 " + label] = res, s
     first = next(iter(deep.values()))
     check(all(torch.equal(r.ids, first.ids) for r in deep.values()),
           "path C: k=10000 routes disagree")
 
-    res, s, reruns = search_route(torch, idx, Q, 100, {}, None, precision="bf16",
-                                  refine=10)
-    rec = report("refine=10 over bf16 (sq8 store)", res, s, reruns, 100)
+    refined, s_refined, reruns = search_route(torch, idx, Q, 100, {}, None,
+                                              precision="bf16", refine=10)
+    rec = report("refine=10 over bf16 (sq8 store)", refined, s_refined, reruns, 100)
     check(rec[0] > 0.9, f"path C: refined recall@1 {rec[0]} too low")
 
     phase_ivf_routes(torch, idx, Q, gt, base)
@@ -1489,7 +1511,13 @@ def phase_serving(torch, data, dev):
     check(all(launches[n] > 0 for n in ("ils_encode", "scan_topk", "k2_filter",
                                         "k2_select", "scan_select", "scan_key")),
           f"path C: a kernel of the path never launched: {launches}")
-    return launches, recalls["default (K2)"]
+    deep_label = "default (K2 grouped_unsorted + widen)"
+    for_g = {"index": built, "Q": Q, "routes": {
+        "f32": (base, times["default (K2)"]),
+        "bf16": (bf16["default (K2)"], times["bf16 default (K2)"]),
+        "k10000": (deep[deep_label], times["k10000 " + deep_label]),
+        "refine": (refined, s_refined)}}
+    return launches, recalls["default (K2)"], for_g
 
 
 # Path E: the serving command line (the twins of scripts/build_index.py,
@@ -1521,12 +1549,12 @@ class Server:
     request is written whole, then its response read whole (the header line
     and the binary blocks), so neither pipe can fill."""
 
-    def __init__(self, index: str, log: str, env=None):
+    def __init__(self, index: str, log: str, env=None, args=()):
         self.log = log
         with open(log, "wb") as err:
             self.proc = subprocess.Popen(
                 [sys.executable, os.path.join(CLI_SCRIPTS, "serve.py"), "--index", index,
-                 "--k", "100"], stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+                 "--k", "100", *args], stdin=subprocess.PIPE, stdout=subprocess.PIPE,
                 stderr=err, env=env)
         self.timer = threading.Timer(SERVER_DEADLINE_S, self.proc.kill)
         self.timer.daemon = True
@@ -1534,7 +1562,7 @@ class Server:
         t0 = time.perf_counter()
         line = self.proc.stdout.readline()
         self.ready_s = time.perf_counter() - t0
-        check(bool(line), f"path E: a server exited before 'ready': {self.stderr()[-3000:]}")
+        check(bool(line), f"a server exited before 'ready': {self.stderr()[-3000:]}")
         self.ready = json.loads(line)
 
     def stderr(self) -> str:
@@ -1551,9 +1579,9 @@ class Server:
         try:
             resp = read_response(self.proc.stdout)
         except EOFError as e:
-            fail(f"path E: the server died on request {req.get('id')} ({e}): "
+            fail(f"a server died on request {req.get('id')} ({e}): "
                  f"{self.stderr()[-3000:]}")
-        check("error" not in resp, f"path E: request {req.get('id')} answered {resp}")
+        check("error" not in resp, f"a server answered request {req.get('id')}: {resp}")
         return resp, (time.perf_counter() - t0) * 1e3
 
     def close(self) -> dict:
@@ -1564,7 +1592,7 @@ class Server:
         self.proc.stdin.write(b"EOF\n")
         self.proc.stdin.close()
         code = self.proc.wait(timeout=120)
-        check(code == 0, f"path E: a server exited {code}: {self.stderr()[-3000:]}")
+        check(code == 0, f"a server exited {code}: {self.stderr()[-3000:]}")
         return served_launches(self.stderr())
 
     def kill(self) -> None:
@@ -1675,133 +1703,133 @@ def served_counts(label: str, launches: dict, kernels) -> dict:
     return launches
 
 
-def phase_cli(torch, data, dev, recall_c):
+def phase_cli(torch, data, dev, recall_c, tmp):
     """Path E: build -> eval -> serve (latency, the four protocol modes,
     large batches, a key-route server, mutations) -> the in-process replay
-    -> reload. Returns the launches the two servers' requests made, as
-    each server counted them: K1 (add), K2, K3 on the first, K4 on the
-    key-route one."""
+    -> reload, in the directory `tmp` (the index stays there as saved, for
+    path G). Returns the launches the two servers' requests made, as each
+    server counted them: K1 (add), K2, K3 on the first, K4 on the key-route
+    one."""
     from local_search_quantization_torch.benchmarks import bench_serve
     from local_search_quantization_torch.index import Index
 
     x_train, _, x_query, _ = data
     t_path = time.perf_counter()
     servers = []
-    with tempfile.TemporaryDirectory() as tmp:
-        try:
-            index = os.path.join(tmp, "index")
-            t0 = time.perf_counter()
-            last = run_twin("build_index.py", "--out", index, *CLI_BUILD).splitlines()[-1]
-            with open(os.path.join(index, "meta.json")) as f:
-                meta = json.load(f)
-            print(f"[{CARD}] path E: build_index twin {' '.join(CLI_BUILD)}: build_s "
-                  f"{meta['build_s']} (Index.build + build_ivf), "
-                  f"{time.perf_counter() - t0:.3f} s with the process, corpus and save; "
-                  f"{last[:160]}")
+    try:
+        index = os.path.join(tmp, "index")
+        t0 = time.perf_counter()
+        last = run_twin("build_index.py", "--out", index, *CLI_BUILD).splitlines()[-1]
+        with open(os.path.join(index, "meta.json")) as f:
+            meta = json.load(f)
+        print(f"[{CARD}] path E: build_index twin {' '.join(CLI_BUILD)}: build_s "
+              f"{meta['build_s']} (Index.build + build_ivf), "
+              f"{time.perf_counter() - t0:.3f} s with the process, corpus and save; "
+              f"{last[:160]}")
 
-            # The eval twin on the index as built (it regenerates the corpus
-            # from the meta, so it runs before any mutation).
-            table = os.path.join(tmp, "recall.json")
-            t0 = time.perf_counter()
-            run_twin("eval_index.py", "--index", index, "--nquery", "1000", "--knn", "1000",
-                     "--out", table)
-            with open(table) as f:
-                ev = json.load(f)
-            rec = [ev["recall"][f"r@{n}"] for n in (1, 10, 100, 1000)]
-            want = [float(recall_c[n - 1]) for n in (1, 10, 100, 1000)]
-            print(f"[{CARD}] path E: eval_index twin, 1000 queries at k=1000 in "
-                  f"{time.perf_counter() - t0:.3f} s ({ev['qps']:.1f} qps in the twin): "
-                  f"recall@1/10/100/1000 " + " / ".join(f"{r:.4f}" for r in rec)
-                  + "; path C's default route " + " / ".join(f"{r:.4f}" for r in want))
-            check(all(abs(a - b) <= 0.01 for a, b in zip(rec, want)),
-                  "path E: the eval twin's recall is not path C's within 0.01")
+        # The eval twin on the index as built (it regenerates the corpus
+        # from the meta, so it runs before any mutation).
+        table = os.path.join(tmp, "recall.json")
+        t0 = time.perf_counter()
+        run_twin("eval_index.py", "--index", index, "--nquery", "1000", "--knn", "1000",
+                 "--out", table)
+        with open(table) as f:
+            ev = json.load(f)
+        rec = [ev["recall"][f"r@{n}"] for n in (1, 10, 100, 1000)]
+        want = [float(recall_c[n - 1]) for n in (1, 10, 100, 1000)]
+        print(f"[{CARD}] path E: eval_index twin, 1000 queries at k=1000 in "
+              f"{time.perf_counter() - t0:.3f} s ({ev['qps']:.1f} qps in the twin): "
+              f"recall@1/10/100/1000 " + " / ".join(f"{r:.4f}" for r in rec)
+              + "; path C's default route " + " / ".join(f"{r:.4f}" for r in want))
+        check(all(abs(a - b) <= 0.01 for a, b in zip(rec, want)),
+              "path E: the eval twin's recall is not path C's within 0.01")
 
-            idx = Index.load(index, device=dev)  # the as-built index, for the replay
-            a = Server(index, os.path.join(tmp, "a.log"))
-            servers.append(a)
-            name = torch.cuda.get_device_name(0)
-            check(a.ready == {"ready": True, "method": "lsq", "n": CLI_NBASE, "d": D,
-                              "k": 100, "ivf_nlist": IVF_NLIST, "refine": "sq8"},
-                  f"path E: ready line {a.ready}")
-            note = a.stderr().strip()
-            check(name in note and "scan_topk" in note,
-                  f"path E: the start-up line does not name the card and kernels: {note}")
-            print(f"path E: server ready in {a.ready_s:.3f} s (load, kernels, warm-up); "
-                  f"stderr: {note}")
+        idx = Index.load(index, device=dev)  # the as-built index, for the replay
+        a = Server(index, os.path.join(tmp, "a.log"))
+        servers.append(a)
+        name = torch.cuda.get_device_name(0)
+        check(a.ready == {"ready": True, "method": "lsq", "n": CLI_NBASE, "d": D,
+                          "k": 100, "ivf_nlist": IVF_NLIST, "refine": "sq8"},
+              f"path E: ready line {a.ready}")
+        note = a.stderr().strip()
+        check(name in note and "scan_topk" in note,
+              f"path E: the start-up line does not name the card and kernels: {note}")
+        print(f"path E: server ready in {a.ready_s:.3f} s (load, kernels, warm-up); "
+              f"stderr: {note}")
 
-            batches = latency_batches(x_query)
-            served_lat = cli_latency(a, batches)
+        batches = latency_batches(x_query)
+        served_lat = cli_latency(a, batches)
 
-            ov = bench_serve.run(index, nq=2048, k=100, batch=256, device=dev)
-            for line in bench_serve.lines(ov, a.ready["n"], 2048, 100, 256, dev.type, "f32"):
-                print(f"[{CARD}] path E protocol: {line}")
+        ov = bench_serve.run(index, nq=2048, k=100, batch=256, device=dev)
+        for line in bench_serve.lines(ov, a.ready["n"], 2048, 100, 256, dev.type, "f32"):
+            print(f"[{CARD}] path E protocol: {line}")
 
-            big = {"k1000": ({"k": K}, x_query),
-                   "bf16": ({"k": 100, "precision": "bf16"}, x_query),
-                   "refine10": ({"k": 100, "refine": 10}, x_query),
-                   "nprobe32": ({"k": K, "nprobe": 32}, x_query),
-                   "k10000": ({"k": 10_000}, x_query[:100])}
-            # Each sent twice: the first pays for the server's first use of
-            # the route (allocations, uploads), the second is steady.
-            for i, (label, (kw, Q)) in enumerate(list(big.items())):
-                resp, ms = a.ask(*framed(100 + i, Q, **kw))
-                again, ms_again = a.ask(*framed(150 + i, Q, **kw))
-                check(resp["ids"].shape == (Q.shape[0], kw["k"])
-                      and np.array_equal(resp["ids"], again["ids"]),
-                      f"path E: {label} response shape {resp['ids'].shape}, or unstable")
-                big[label] = (kw, Q, resp, ms_again)
-                print(f"[{CARD}] path E {label}: {Q.shape[0]} queries, {kw}, binary both "
-                      f"ways: {ms:.3f} client ms, again {ms_again:.3f}")
+        big = {"k1000": ({"k": K}, x_query),
+               "bf16": ({"k": 100, "precision": "bf16"}, x_query),
+               "refine10": ({"k": 100, "refine": 10}, x_query),
+               "nprobe32": ({"k": K, "nprobe": 32}, x_query),
+               "k10000": ({"k": 10_000}, x_query[:100])}
+        # Each sent twice: the first pays for the server's first use of
+        # the route (allocations, uploads), the second is steady.
+        for i, (label, (kw, Q)) in enumerate(list(big.items())):
+            resp, ms = a.ask(*framed(100 + i, Q, **kw))
+            again, ms_again = a.ask(*framed(150 + i, Q, **kw))
+            check(resp["ids"].shape == (Q.shape[0], kw["k"])
+                  and np.array_equal(resp["ids"], again["ids"]),
+                  f"path E: {label} response shape {resp['ids'].shape}, or unstable")
+            big[label] = (kw, Q, resp, ms_again)
+            print(f"[{CARD}] path E {label}: {Q.shape[0]} queries, {kw}, binary both "
+                  f"ways: {ms:.3f} client ms, again {ms_again:.3f}")
 
-            b = Server(index, os.path.join(tmp, "b.log"),
-                       env=dict(os.environ, LSQ_TPU_SELECT_VARIANT="key"))
-            servers.append(b)
-            served_key, ms = b.ask(*framed(200, x_query, k=K))
-            _, ms_again = b.ask(*framed(201, x_query, k=K))
-            same = np.array_equal(served_key["ids"], big["k1000"][2]["ids"])
-            print(f"[{CARD}] path E key-route server: ready in {b.ready_s:.3f} s; 1000 "
-                  f"queries at k={K} in {ms:.3f} client ms, again {ms_again:.3f}; ids "
-                  f"identical to the first server's: {same}")
-            check(same, "path E: the key-route server returns other ids")
-            served_b = served_counts("key-route server", b.close(), ("scan_key",))
+        b = Server(index, os.path.join(tmp, "b.log"),
+                   env=dict(os.environ, LSQ_TPU_SELECT_VARIANT="key"))
+        servers.append(b)
+        served_key, ms = b.ask(*framed(200, x_query, k=K))
+        _, ms_again = b.ask(*framed(201, x_query, k=K))
+        same = np.array_equal(served_key["ids"], big["k1000"][2]["ids"])
+        print(f"[{CARD}] path E key-route server: ready in {b.ready_s:.3f} s; 1000 "
+              f"queries at k={K} in {ms:.3f} client ms, again {ms_again:.3f}; ids "
+              f"identical to the first server's: {same}")
+        check(same, "path E: the key-route server returns other ids")
+        served_b = served_counts("key-route server", b.close(), ("scan_key",))
 
-            rows = x_train[:CLI_ADD]
-            r_add, ms_add = a.ask({"op": "add", "id": 300, "binary_vectors": CLI_ADD},
-                                  np.ascontiguousarray(rows, "<f4").tobytes())
-            added = list(range(CLI_NBASE, CLI_NBASE + CLI_ADD))
-            check(r_add["added"] == added and r_add["n"] == CLI_NBASE + CLI_ADD,
-                  f"path E: add answered n={r_add['n']}")
-            gone = big["k1000"][2]["ids"][0, :10]
-            r_del, ms_del = a.ask({"op": "delete", "id": 301, "ids": gone.tolist()})
-            after, _ = a.ask(*framed(302, x_query[:1], k=100))
-            check(r_del["deleted"] == 10 and not np.isin(after["ids"], gone).any(),
-                  "path E: a deleted id came back")
-            r_comp, ms_comp = a.ask({"op": "compact", "id": 303})
-            r_save, ms_save = a.ask({"op": "save", "id": 304})
-            n_final = CLI_NBASE + CLI_ADD - 10
-            check(r_comp["removed"] == 10 and r_comp["n"] == r_save["n"] == n_final,
-                  f"path E: compact/save answered {r_comp}, {r_save}")
-            served_a = served_counts("server", a.close(),
-                                     ("ils_encode", "scan_topk", "scan_select"))
-            print(f"[{CARD}] path E mutations, client ms: add of {CLI_ADD} rows in one "
-                  f"frame {ms_add:.3f}, delete of the 10 nearest of query 0 {ms_del:.3f}, "
-                  f"compact {ms_comp:.3f} (n={r_comp['n']}), save {ms_save:.3f}")
+        rows = x_train[:CLI_ADD]
+        r_add, ms_add = a.ask({"op": "add", "id": 300, "binary_vectors": CLI_ADD},
+                              np.ascontiguousarray(rows, "<f4").tobytes())
+        added = list(range(CLI_NBASE, CLI_NBASE + CLI_ADD))
+        check(r_add["added"] == added and r_add["n"] == CLI_NBASE + CLI_ADD,
+              f"path E: add answered n={r_add['n']}")
+        gone = big["k1000"][2]["ids"][0, :10]
+        r_del, ms_del = a.ask({"op": "delete", "id": 301, "ids": gone.tolist()})
+        after, _ = a.ask(*framed(302, x_query[:1], k=100))
+        check(r_del["deleted"] == 10 and not np.isin(after["ids"], gone).any(),
+              "path E: a deleted id came back")
+        r_comp, ms_comp = a.ask({"op": "compact", "id": 303})
+        r_save, ms_save = a.ask({"op": "save", "id": 304})
+        n_final = CLI_NBASE + CLI_ADD - 10
+        check(r_comp["removed"] == 10 and r_comp["n"] == r_save["n"] == n_final,
+              f"path E: compact/save answered {r_comp}, {r_save}")
+        served_a = served_counts("server", a.close(),
+                                 ("ils_encode", "scan_topk", "scan_select"))
+        print(f"[{CARD}] path E mutations, client ms: add of {CLI_ADD} rows in one "
+              f"frame {ms_add:.3f}, delete of the 10 nearest of query 0 {ms_del:.3f}, "
+              f"compact {ms_comp:.3f} (n={r_comp['n']}), save {ms_save:.3f}")
 
-            cli_replay(torch, idx, batches, served_lat, big, served_key["ids"],
-                       (rows, added, gone, x_query[:1], after))
-            again = Index.load(index, device=dev)
-            found = again.search(rows[:1000], k=100).ids.cpu().numpy()
-            hit = float(np.mean([n_final - CLI_ADD + i in row for i, row in enumerate(found)]))
-            same = (np.array_equal(again.B, idx.B) and np.array_equal(again._dbn, idx._dbn)
-                    and again.n == idx.n == n_final)
-            print(f"path E reload: n={again.n}, codes and norms identical to the replay's "
-                  f"{same}; {hit:.4f} of 1000 added rows found in their own top-100")
-            check(same and hit >= 0.9, "path E: the saved index is not the replayed one")
-            del idx, again
-            torch.cuda.empty_cache()
-        finally:
-            for server in servers:
-                server.kill()
+        cli_replay(torch, idx, batches, served_lat, big, served_key["ids"],
+                   (rows, added, gone, x_query[:1], after))
+        again = Index.load(index, device=dev)
+        found = again.search(rows[:1000], k=100).ids.cpu().numpy()
+        hit = float(np.mean([n_final - CLI_ADD + i in row for i, row in enumerate(found)]))
+        same = (np.array_equal(again.B, idx.B) and np.array_equal(again._dbn, idx._dbn)
+                and again.n == idx.n == n_final)
+        print(f"path E reload: n={again.n}, codes and norms identical to the replay's "
+              f"{same}; {hit:.4f} of 1000 added rows found in their own top-100")
+        check(same and hit >= 0.9, "path E: the saved index is not the replayed one")
+        del idx, again
+        torch.cuda.empty_cache()
+    finally:
+        for server in servers:
+            server.kill()
     print(f"[{CARD}] path E: wall {time.perf_counter() - t_path:.3f} s")
     return {name: served_a[name] + served_b[name] for name in COUNTED}
 
@@ -2038,6 +2066,244 @@ def phase_family(torch, demo, data, dev, path_a):
     return launches
 
 
+# Path G: the mesh (`parallel/`) on the one card: shards of [cuda:0] * 4, and
+# [cuda:0] * 3 where the shard count must not divide n. The shards run one
+# after another, so the path checks the sharded layout, the ordered sums, the
+# merge and the cache against the single-device results at full size; it
+# measures no multi-GPU scaling.
+G_SHARDS = 4
+# The sharded codebook update against the single-device one: path A's corpus
+# is integer-valued, as SIFT's is, so every partial sum of G and A^T X is an
+# integer far below 2**24 and exact in f32 in any order. The shards' ordered
+# sum then gives the single device's G and A^T X exactly, and the same
+# Cholesky solve the same codebooks: they must be equal bit for bit (a pad
+# row counted, or a row dropped, changes them). The qerror is printed only.
+
+
+def shard_costs(torch, Xs, Bs, C):
+    """Per-row MRF cost of each shard's block in one piece, as
+    `ils_encode` computes its start cost on that block (the same shapes, so
+    the same products): the accept invariant compares against it."""
+    from local_search_quantization_torch.ops.icm import cost_from_luts
+    from local_search_quantization_torch.ops.luts import get_binaries, get_unaries
+
+    b = get_binaries(C)
+    return torch.cat([cost_from_luts(torch.sum(x * x, dim=-1), get_unaries(x, C), b, bs)
+                      for x, bs in zip(Xs, Bs)])
+
+
+def path_g1(torch, data, dev, path_a):
+    """The sharded codebook update (4 and 3 shards), ILS encode (K1, then K5)
+    and train step on path A's corpus and codes, and the 1M-row base encode
+    through the sharded encode."""
+    from local_search_quantization_torch.ops.costs import qerror
+    from local_search_quantization_torch.ops.solver import update_codebooks
+    from local_search_quantization_torch.parallel import data_mesh, shard_batch
+    from local_search_quantization_torch.parallel.encode import (
+        make_lsq_train_step, sharded_ils_encode, sharded_update_codebooks,
+    )
+    from local_search_quantization_torch.utils.synth import random_codes
+
+    x_train, x_base = data[0], data[1]
+    X = torch.as_tensor(x_train, device=dev)
+    B = path_a["lsq"].B.to(dev, torch.int32)
+    C = path_a["lsq"].C
+    n = X.shape[0]
+    check(torch.equal(X, X.round()), "path G1: path A's corpus is not integer-valued, so "
+          "the sharded update cannot be held to the single device's bit for bit")
+    C1, s1 = timed(torch, lambda: update_codebooks(X, B, H))
+    e1 = float(qerror(X, B, C1))
+    for shards, n_valid in ((G_SHARDS, None), (3, n)):
+        mesh = data_mesh([dev] * shards)
+        Xs, Bs = shard_batch(mesh, X), shard_batch(mesh, B)
+        pad = sum(x.shape[0] for x in Xs) - n
+        Cs, ss = timed(torch, lambda: sharded_update_codebooks(mesh, Xs, Bs, H,
+                                                               n_valid=n_valid))
+        again = sharded_update_codebooks(mesh, Xs, Bs, H, n_valid=n_valid)
+        es = float(qerror(X, B, Cs))
+        same = torch.equal(Cs, again)
+        print(f"[{CARD}] path G1: sharded_update_codebooks over {shards} shards of cuda:0 "
+              f"(n={n}, {pad} pad rows, n_valid={n_valid}): {ss * 1e3:.3f} ms, single "
+              f"device {s1 * 1e3:.3f} ms; qerror {es:.7e} vs {e1:.7e} (rel "
+              f"{abs(es - e1) / e1:.3e}); max |dC| {float((Cs - C1).abs().max()):.3e} of "
+              f"max |C| {float(C1.abs().max()):.3e}; two calls identical: {same}")
+        check(torch.equal(Cs, C1), f"path G1: the sharded update over {shards} shards "
+              "is not the single device's bit for bit")
+        check(same, f"path G1: two sharded updates over {shards} shards differ")
+
+    mesh = data_mesh([dev] * G_SHARDS)
+    Xs, Bs = shard_batch(mesh, X), shard_batch(mesh, B)
+    cost0 = shard_costs(torch, Xs, Bs, C)
+    for mode in ("auto", "fused"):
+        before = read_counters()
+        res, s = timed(torch, lambda: sharded_ils_encode(
+            mesh, torch.Generator(device=dev).manual_seed(11), Xs, Bs, C, ilsiter=8,
+            icmiter=ICMITER, npert=NPERT, condition_mode=mode))
+        after = read_counters()
+        cost = torch.cat(res.cost)
+        print(f"[{CARD}] path G1: sharded_ils_encode ({mode}) of path A's {n} training "
+              f"codes, 8 rounds, {G_SHARDS} shards: {s:.3f} s, mean cost "
+              f"{float(cost0.mean()):.6e} -> {float(cost.mean()):.6e}; K1 launches "
+              f"{after['ils_encode'] - before['ils_encode']}, K5 "
+              f"{after['icm_sweeps_v2'] - before['icm_sweeps_v2']}")
+        check(bool((cost <= cost0).all()) and float(cost.mean()) < float(cost0.mean()),
+              f"path G1: the sharded encode ({mode}) raised a row's cost or not the mean")
+        kernel = "ils_encode" if mode == "auto" else "icm_sweeps_v2"
+        check(after[kernel] > before[kernel], f"path G1: {mode} did not launch {kernel}")
+
+    step = make_lsq_train_step(mesh, H, ilsiter=8, icmiter=ICMITER, npert=NPERT)
+    (_, B1, c1), s_a = timed(torch, lambda: step(torch.Generator(device=dev).manual_seed(1),
+                                                 Xs, Bs))
+    (_, _, c2), s_b = timed(torch, lambda: step(torch.Generator(device=dev).manual_seed(2),
+                                                Xs, B1))
+    m1, m2 = float(torch.cat(c1).mean()), float(torch.cat(c2).mean())
+    print(f"[{CARD}] path G1: two make_lsq_train_step steps (8 rounds each) {s_a:.3f} s, "
+          f"{s_b:.3f} s; mean cost {m1:.6e} -> {m2:.6e}")
+    check(m2 <= m1 * 1.001, "path G1: a train step raised the mean cost")
+
+    Xb = torch.as_tensor(x_base, device=dev)
+    B0 = torch.as_tensor(random_codes(0, Xb.shape[0], M, H), device=dev)
+    Xbs, B0s = shard_batch(mesh, Xb), shard_batch(mesh, B0)
+    base, s_base = timed(torch, lambda: sharded_ils_encode(
+        mesh, torch.Generator(device=dev).manual_seed(1), Xbs, B0s, C,
+        ilsiter=MAIN["ilsiter_base"], icmiter=ICMITER, npert=NPERT))
+    cost = torch.cat(base.cost)
+    rate = Xb.shape[0] / s_base
+    print(f"[{CARD}] path G1: the {Xb.shape[0]}-row base encode (LSQ-{MAIN['ilsiter_base']}, "
+          f"K1) through sharded_ils_encode over {G_SHARDS} shards of one card, run one "
+          f"after another: {s_base:.3f} s = {rate:.0f} vec/s (path A, single device: "
+          f"{path_a['info']['encode_vec_per_s']:.0f} vec/s, the same card); mean cost "
+          f"{float(cost.mean()):.6e} (path A's LSQ-16 base error "
+          f"{path_a['info']['base_error']:.6e})")
+    check(bool((cost <= shard_costs(torch, Xbs, B0s, C)).all())
+          and float(cost.mean()) <= 1.01 * path_a["info"]["base_error"],
+          "path G1: the sharded base encode raised a row's cost, or its mean is over "
+          "1.01 x path A's")
+
+
+def path_g2(torch, dev, for_g):
+    """`search(mesh=)` on path C's index as built, against path C's default
+    route: f32 k=1000 (4 and 3 shards), bf16, k=10000, refine; nprobe with a
+    mesh raises; the mesh cache is reused, then rebuilt after a delete."""
+    from local_search_quantization_torch.parallel import data_mesh
+
+    idx, Q = for_g["index"], for_g["Q"]
+    mesh = data_mesh([dev] * G_SHARDS)
+    cases = [("f32", K, "f32", None, mesh), ("f32, 3 shards", K, "f32", None,
+                                             data_mesh([dev] * 3)),
+             ("bf16", K, "bf16", None, mesh), ("k10000", 10_000, "f32", None, mesh),
+             ("refine", 100, "bf16", 10, mesh)]
+    for label, k, precision, refine, m in cases:
+        want, s_c = for_g["routes"][label.split(",")[0]]
+        before = read_counters()
+        res, s, _ = search_route(torch, idx, Q, k, {}, None, precision=precision,
+                                 refine=refine, mesh=m)
+        after = read_counters()
+        same = torch.equal(res.ids.long(), want.ids.long())
+        dmax = float((res.dists - want.dists).abs().max())
+        print(f"[{CARD}] path G2: search(mesh={len(m.devices)} x cuda:0) {label}, "
+              f"{Q.shape[0]} queries at k={k}: {s * 1e3:.3f} ms (path C's single-device "
+              f"route {s_c * 1e3:.3f} ms); ids identical {same}, max |ddist| {dmax}; K2 "
+              f"launches {after['scan_topk'] - before['scan_topk']}, K3 "
+              f"{after['scan_select'] - before['scan_select']} (two searches)")
+        check(same and dmax == 0.0, f"path G2: the mesh search ({label}) is not path C's")
+    try:
+        idx.search(Q[:1], k=10, nprobe=8, mesh=mesh)
+        fail("path G2: nprobe with a mesh did not raise")
+    except ValueError as e:
+        print(f"path G2: nprobe with a mesh raises ValueError ({e})")
+        check("mesh sharding applies to exhaustive scans" in str(e),
+              f"path G2: nprobe with a mesh raised another error: {e}")
+    state = idx._mesh_scan_cache[2]
+    first = idx.search(Q[:1], k=K, mesh=mesh)
+    check(idx._mesh_scan_cache[2] is state, "path G2: the mesh cache was not reused")
+    gone = first.ids[0, :10].cpu().numpy()
+    idx.delete(gone)
+    after = idx.search(Q[:1], k=K, mesh=mesh)
+    rebuilt = idx._mesh_scan_cache[2] is not state
+    back = bool(np.isin(after.ids.cpu().numpy(), gone).any())
+    single = idx.search(Q[:1], k=K)
+    print(f"path G2: the second search reused the sharded codes; after deleting the 10 "
+          f"nearest of query 0 the cache was rebuilt: {rebuilt}, a deleted id came back: "
+          f"{back}, ids = the single-device search's: {torch.equal(after.ids, single.ids)}")
+    check(rebuilt and not back and torch.equal(after.ids, single.ids),
+          "path G2: the mesh cache did not follow the delete")
+
+
+def path_g3(torch, dev, tmp, x_query):
+    """The serve twin with `--mesh N` (N the card count) over path E's saved
+    index: JSON requests answered as `search(mesh=)` in process, bit for bit;
+    its own launch counts show K2. `--mesh N+1` exits before "ready"."""
+    from local_search_quantization_torch.index import Index
+    from local_search_quantization_torch.parallel import data_mesh
+
+    index = os.path.join(tmp, "index")
+    count = torch.cuda.device_count()
+    server = Server(index, os.path.join(tmp, "g3.log"), args=("--mesh", str(count)))
+    try:
+        note = server.stderr().strip()
+        check(f"mesh of {count}" in note, f"path G3: the start-up line names no mesh: {note}")
+        reqs = [{"id": 1, "vectors": x_query[:1].tolist(), "k": 100},
+                {"id": 2, "vectors": x_query[1:17].tolist(), "k": 100},
+                {"id": 3, "vectors": x_query[17:117].tolist(), "k": K},
+                {"id": 4, "vectors": x_query[:16].tolist(), "k": 100, "precision": "bf16"}]
+        served = [server.ask(r) for r in reqs]
+        launches = server.close()
+    finally:
+        server.kill()
+    idx = Index.load(index, device=dev)
+    mesh = data_mesh([torch.device(dev.type, i) for i in range(count)])
+    same = True
+    for r, (resp, ms) in zip(reqs, served):
+        res = idx.search(np.asarray(r["vectors"], np.float32), k=r["k"], mesh=mesh,
+                         precision=r.get("precision", "f32"))
+        same &= (np.array_equal(res.ids.cpu().numpy(), np.asarray(resp["ids"]))
+                 and np.array_equal(res.dists.cpu().numpy(),
+                                    np.asarray(resp["dists"], np.float32)))
+        print(f"[{CARD}] path G3: serve --mesh {count}, request {r['id']} "
+              f"({len(r['vectors'])} queries, k={r['k']}, "
+              f"{r.get('precision', 'f32')}): {ms:.3f} client ms")
+    print(f"path G3: served ids and dists identical to search(mesh=) in this process: "
+          f"{same}; the server's launches {launches}")
+    check(same, "path G3: a served mesh response differs from search(mesh=)")
+    check(launches["scan_topk"] > 0, f"path G3: the mesh server never launched K2: {launches}")
+    out = subprocess.run([sys.executable, os.path.join(CLI_SCRIPTS, "serve.py"), "--index",
+                          index, "--mesh", str(count + 1)], capture_output=True, text=True,
+                         timeout=SERVER_DEADLINE_S)
+    want = f"--mesh {count + 1} needs {count + 1} devices, have {count}"
+    print(f"path G3: serve --mesh {count + 1} exits {out.returncode} before 'ready' "
+          f"(stdout {out.stdout!r}): {out.stderr.strip().splitlines()[-1:]}")
+    check(out.returncode != 0 and out.stdout == "" and want in out.stderr,
+          f"path G3: --mesh {count + 1} on {count} card(s) did not exit before 'ready'")
+    return launches
+
+
+def phase_mesh(torch, data, dev, path_a, for_g, tmp):
+    """Path G: G1 encode and train, G2 query, G3 the serve twin over a mesh.
+    The counters are zeroed just before and read just after; the launches
+    are this process's plus the G3 server's own count of its requests. K1,
+    K5, K2 and K3 must each launch."""
+    torch.cuda.synchronize()
+    zero_counters()
+    t0 = time.perf_counter()
+    path_g1(torch, data, dev, path_a)
+    t1 = time.perf_counter()
+    path_g2(torch, dev, for_g)
+    t2 = time.perf_counter()
+    served = path_g3(torch, dev, tmp, data[2])
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    own = read_counters()
+    launches = {name: own[name] + served[name] for name in COUNTED}
+    print(f"[{CARD}] path G: G1 {t1 - t0:.3f} s, G2 {t2 - t1:.3f} s, G3 {t3 - t2:.3f} s, "
+          f"wall {t3 - t0:.3f} s")
+    print(f"path G: kernel launches {launches} (in process {own}; the G3 server {served})")
+    check(all(launches[n] > 0 for n in ("ils_encode", "icm_sweeps_v2", "scan_topk",
+                                        "scan_select")),
+          f"path G: a kernel of the path never launched: {launches}")
+    return launches
+
+
 def phase_main(torch, demo, data, dev):
     """Path A ("auto": K1 and K2), then path B ("fused": K5 and K2) from
     path A's OPQ/ChainQ models. Returns both paths' launches and path A's
@@ -2091,10 +2357,13 @@ def main() -> int:
     k4 = phase_k4(torch, k2_inputs, t0, cap)
     del k2_inputs
     launches_ab, path_a = phase_main(torch, demo, data, dev)
-    launches_c, recall_c = phase_serving(torch, data, dev)
-    paths = [*launches_ab, launches_c, phase_bench_path(torch, dev),
-             phase_cli(torch, data, dev, recall_c),
-             phase_family(torch, demo, data, dev, path_a)]
+    launches_c, recall_c, for_g = phase_serving(torch, data, dev)
+    paths = [*launches_ab, launches_c, phase_bench_path(torch, dev)]
+    with tempfile.TemporaryDirectory() as tmp:
+        paths += [phase_cli(torch, data, dev, recall_c, tmp),
+                  phase_family(torch, demo, data, dev, path_a),
+                  phase_mesh(torch, data, dev, path_a, for_g, tmp)]
+    del for_g
     # Each kernel's count summed over the paths that run it (K6 is on none).
     launches = {name: sum(p[name] for p in paths) for name in COUNTED}
 

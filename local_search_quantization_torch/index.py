@@ -1,6 +1,6 @@
 """Servable MCQ index: one frozen trained model + a mutable code store.
 
-Port of `local_search_quantization_tpu.index` without a mesh:
+Port of `local_search_quantization_tpu.index`:
 
     idx = Index.build(x_train, x_base, method="lsq", device="cuda")
     idx.save("./index_lsq")
@@ -12,6 +12,7 @@ Port of `local_search_quantization_tpu.index` without a mesh:
     idx.delete([3, 17])       # O(1) +inf tombstones; ids stay stable
     idx.build_ivf(nlist=1024)             # coarse partition over the codes
     res = idx.search(queries, k=100, nprobe=32)   # scan 32 lists + the tail
+    res = idx.search(queries, k=100, mesh=parallel.data_mesh())  # sharded scan
     idx.save("./index_lsq")   # persist mutations atomically
 
 The model tensors, the refine store and the scan cache (the codes uploaded
@@ -50,14 +51,6 @@ def _scan_cache_enabled(n: int, device) -> bool:
 
 def _host(x) -> np.ndarray:
     return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
-
-
-def _not_ported(what: str, module: str) -> NotImplementedError:
-    """The error of a feature the port does not have yet; it names the module
-    that brings it (ROADMAP.md, "Modules to port"), not a queue number, which
-    changes as the roadmap is rewritten."""
-    return NotImplementedError(f"{what} is not ported to the PyTorch package yet "
-                               f"(module {module}; ROADMAP.md, modules to port)")
 
 
 def _encode_chunked(fn, X, device) -> np.ndarray:
@@ -105,6 +98,7 @@ class Index:
         # uploaded scan state is never stale.
         self._scan_ver = 0
         self._scan_cache = None
+        self._mesh_scan_cache = None  # (scan version, mesh, sharded state)
         if self.additive:
             if bnorm is None:
                 raise ValueError(f"{method} needs bnorm norm codes")
@@ -489,6 +483,27 @@ class Index:
         self._scan_cache = (self._scan_ver, state)
         return state
 
+    def _mesh_scan_state(self, mesh):
+        """The codes padded and sharded once for the mesh route
+        (`parallel.query.prepare_sharded_codes`), keyed on `_scan_ver` and
+        on the mesh object itself (a server holds one mesh; another mesh
+        rebuilds). Unlike the single-device cache it is on for CPU meshes
+        too (no host scanner serves a mesh); the streaming bound applies per
+        shard."""
+        from local_search_quantization_torch.parallel.mesh import DATA_AXIS
+        from local_search_quantization_torch.parallel.query import prepare_sharded_codes
+
+        nshards = mesh.shape.get(DATA_AXIS, 1)
+        if self.n > nshards * (1 << 26):
+            return None
+        cached = self._mesh_scan_cache
+        if cached is not None and cached[0] == self._scan_ver and cached[1] is mesh:
+            return cached[2]
+        extra = self._dbn if self.additive else self._extra
+        state = prepare_sharded_codes(mesh, self.B, extra, h=self.meta.get("h"))
+        self._mesh_scan_cache = (self._scan_ver, mesh, state)
+        return state
+
     def _tail_extra(self) -> np.ndarray | None:
         """The extra term of the rows added since the partition was built."""
         t0 = self.ivf.n_grouped
@@ -562,7 +577,12 @@ class Index:
         query LUTs to bf16, on the exhaustive routes only (the probed scan is
         exact f32 by design); it composes with refine, the recommended pairing
         when using it at all. Default "f32" matches the reference scanners.
-        mesh is not ported yet (module parallel/, ROADMAP.md) and raises.
+        mesh: a `parallel.mesh.Mesh` over the "data" axis: the rows are
+        sharded over its devices, each shard's top-k comes from the
+        single-device scan and the shards' lists are merged
+        (`parallel/query.py`); the sharded codes are cached across calls.
+        Exhaustive scans only: with nprobe it raises. Results on the index's
+        device.
         """
         Q = self._queries(Q)
         if Q.ndim != 2 or Q.shape[1] != self.d:
@@ -571,8 +591,6 @@ class Index:
             raise ValueError(f"k={k} out of range [1, {self.n}]")
         if precision not in ("f32", "bf16"):
             raise ValueError(f"precision must be 'f32' or 'bf16', got {precision!r}")
-        if mesh is not None:
-            raise _not_ported("search(mesh=...), the sharded query", "parallel/")
         if precision != "f32" and nprobe is not None and nprobe != 0:
             raise ValueError(
                 "precision='bf16' applies to the exhaustive scan routes; the IVF "
@@ -586,7 +604,7 @@ class Index:
             refine = int(refine)
             if refine < 1:
                 raise ValueError(f"refine must be >= 1, got {refine}")
-            cand = self.search(Q, min(refine * k, self.n), nprobe=nprobe,
+            cand = self.search(Q, min(refine * k, self.n), mesh=mesh, nprobe=nprobe,
                                precision=precision)
             # A +inf first-stage slot never reaches the re-ranker with a real
             # id: the exact distance would resurrect a tombstoned row.
@@ -596,11 +614,30 @@ class Index:
             if self.ivf is None:
                 raise ValueError("nprobe given but no IVF partition; call "
                                  "build_ivf() first")
+            if mesh is not None:
+                raise ValueError("IVF search is a host serving path; "
+                                 "mesh sharding applies to exhaustive scans")
             nprobe = int(nprobe)
             if nprobe < 1:
                 raise ValueError(f"nprobe must be >= 1, got {nprobe}")
             return self._search_ivf(Q, k, nprobe)
-        model, state = self.model, self._device_scan_state()
+        model = self.model
+        if mesh is not None:
+            from local_search_quantization_torch.parallel import query as pq_mod
+
+            state = self._mesh_scan_state(mesh)
+            if self.additive:
+                res = pq_mod.sharded_linscan_lsq(
+                    mesh, self.B, Q, model.C, self._dbn, k,
+                    R=model.R if self.method == "chainq" else None,
+                    precision=precision, device_state=state)
+            else:
+                res = pq_mod.sharded_linscan_pq(
+                    mesh, self.B, Q, model.C_sub, k,
+                    R=model.R if self.method == "opq" else None, extra=self._extra,
+                    precision=precision, device_state=state)
+            return adc.KNNResult(res.dists.to(self.device), res.ids.to(self.device))
+        state = self._device_scan_state()
         if self.additive:
             R = model.R if self.method == "chainq" else None
             return adc.linscan_lsq(self.B, Q, model.C, self._dbn, k=k, R=R,

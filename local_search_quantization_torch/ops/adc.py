@@ -38,7 +38,7 @@ from local_search_quantization_torch.ops.select_kernels import (
 
 __all__ = ["KNNResult", "RERUNS", "TIE_SLACK", "linscan_lsq", "linscan_opq",
            "linscan_pq", "lsq_query_luts", "lut_scan_block", "pq_query_luts",
-           "prepare_device_codes"]
+           "prepare_device_codes", "scan_topk_routed"]
 
 # Relative slack of the tournament's recompute-mode certificate, scaled by
 # the summand magnitudes (m LUT maxima + the largest finite extra). The JAX
@@ -313,30 +313,52 @@ def _run_scan(luts_fn, Q, B, *, k: int, extra=None, query_chunk: int = 256,
             return KNNResult(torch.as_tensor(d).to(dev),
                              torch.as_tensor(i.astype(np.int32)).to(dev))
     luts = luts_fn(Q).contiguous()
-    nq, m, h = luts.shape
-    if topk_method == "auto":
-        topk_method = cuda_route(k, n, m, h) if dev.type == "cuda" else "exact"
     if device_state is not None:
         Bj, extraj = device_state
     else:
         Bj, extraj = prepare_device_codes(B, extra, base_block=base_block,
-                                          device=dev, h=h)
+                                          device=dev, h=luts.shape[2])
+    return scan_topk_routed(luts, Bj, extraj, k, topk_method=topk_method, n=n,
+                            query_chunk=query_chunk, base_block=base_block,
+                            mode=mode, precision=precision)
 
+
+def scan_topk_routed(luts: torch.Tensor, Bt: torch.Tensor, extra: torch.Tensor | None,
+                     k: int, *, topk_method: str = "auto", n: int | None = None,
+                     query_chunk: int = 256, base_block: int = 1 << 16,
+                     mode: str = "matmul", precision: str = "f32") -> KNNResult:
+    """The exact (dist, id)-lexicographic top-k of LUTs [nq, m, h] over codes
+    Bt [m, n_padded] (+inf `extra` on pad rows) on the LUTs' device, by the
+    kernel, tournament or exact route: `_run_scan`'s scan, and each shard's
+    in `parallel.query.sharded_scan_topk`.
+
+    n is the number of real rows (default: all of Bt's columns); "auto" takes
+    `cuda_route(k, n, m, h)` on a CUDA device and "exact" on the CPU. The
+    kernel route's warm start, certificate and deep-k widen, and the
+    tournament's tie certificate, rerun their tied queries here, so every
+    route's result is exact. k <= n.
+    """
+    nq, m, h = luts.shape
+    dev = luts.device
+    if n is None:
+        n = Bt.shape[1]
+    if topk_method == "auto":
+        topk_method = cuda_route(k, n, m, h) if dev.type == "cuda" else "exact"
     if topk_method == "kernel":
-        extra_arr = extraj if extraj is not None else torch.zeros(
-            Bj.shape[1], dtype=torch.float32, device=dev)
+        extra_arr = extra if extra is not None else torch.zeros(
+            Bt.shape[1], dtype=torch.float32, device=dev)
         variant = select_variant(k)
         # The replace-worst flavours keep a value-strict threshold: one extra
         # column and d[k-1] < d[k] prove no boundary tie-mate was skipped;
         # tied queries rerun through the lexicographic "grouped" (K2).
         widen = variant in ("unsorted", "grouped_unsorted") and k < n
         k_req = k + 1 if widen else k
-        d, i, bad = scan_topk_warm_masked(luts, Bj, extra_arr, k=k_req,
+        d, i, bad = scan_topk_warm_masked(luts, Bt, extra_arr, k=k_req,
                                           variant=variant, precision=precision)
         if bad is not None:
             # Only the queries that fail their certificate rerun cold.
             d, i, rerun = rerun_uncertified(
-                luts, Bj, extra_arr, d, i, bad, k=k_req,
+                luts, Bt, extra_arr, d, i, bad, k=k_req,
                 variant="sorted" if variant == "key" else variant, precision=precision)
             RERUNS["warm"] += rerun
         if widen:
@@ -345,29 +367,29 @@ def _run_scan(luts_fn, Q, B, *, k: int, extra=None, query_chunk: int = 256,
             tq = torch.nonzero(tied)[:, 0]
             if tq.numel():
                 RERUNS["widen"] += tq.numel()
-                d2, i2 = fused_scan_topk(luts[tq], Bj, extra_arr, k=k,
+                d2, i2 = fused_scan_topk(luts[tq], Bt, extra_arr, k=k,
                                          variant="grouped", precision=precision)
                 d[tq], i[tq] = d2, i2
         return KNNResult(d, i)
 
-    tournament = topk_method in ("tournament", "twopass") and 4 * k < Bj.shape[1]
-    store = (query_chunk * Bj.shape[1] <= (1 << 28)
+    tournament = topk_method in ("tournament", "twopass") and 4 * k < Bt.shape[1]
+    store = (query_chunk * Bt.shape[1] <= (1 << 28)
              and os.environ.get("LSQ_TPU_TOPK_STORE", "1") == "1")
     out_d, out_i = [], []
     for s in range(0, nq, query_chunk):
         lc = luts[s:s + query_chunk]
         if tournament:
-            (d, i), tied = _scan_topk_tournament(lc, Bj, extraj, k, base_block,
+            (d, i), tied = _scan_topk_tournament(lc, Bt, extra, k, base_block,
                                                  mode=mode, store_dists=store,
                                                  certify=True)
             tq = torch.nonzero(tied)[:, 0]
             if tq.numel():
                 RERUNS["tournament"] += tq.numel()
-                fix = _scan_topk(lc[tq], Bj, extraj, k, base_block, mode=mode)
+                fix = _scan_topk(lc[tq], Bt, extra, k, base_block, mode=mode)
                 d, i = d.clone(), i.clone()
                 d[tq], i[tq] = fix.dists, fix.ids
         else:
-            d, i = _scan_topk(lc, Bj, extraj, k, base_block, mode=mode)
+            d, i = _scan_topk(lc, Bt, extra, k, base_block, mode=mode)
         out_d.append(d)
         out_i.append(i)
     return KNNResult(torch.cat(out_d), torch.cat(out_i))

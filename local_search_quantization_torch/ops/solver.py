@@ -24,13 +24,18 @@ from local_search_quantization_torch.ops.costs import subspace_slices
 def _onehot_chunks(B: torch.Tensor, h: int, chunk: int):
     """Yield (s, oh): the [<=chunk, m*h] one-hot of rows s:s+chunk of the
     design A, chunks in row order. `code_gram` and `_At_matvec` both
-    accumulate over these chunks, so both sum in this one fixed order."""
+    accumulate over these chunks, so both sum in this one fixed order.
+
+    A code outside [0, h) (the -1 that masks a pad row) has an all-zero
+    one-hot, as `jax.nn.one_hot` gives it: its slot writes 0 into its own
+    codebook's first column, which no other code of that row touches."""
     n, m = B.shape
     offs = torch.arange(m, device=B.device) * h
     for s in range(0, n, chunk):
-        b = B[s:s + chunk].long() + offs[None, :]
+        b = B[s:s + chunk].long()
+        valid = (b >= 0) & (b < h)
         oh = torch.zeros((b.shape[0], m * h), dtype=torch.float32, device=B.device)
-        oh.scatter_(1, b, 1.0)
+        oh.scatter_(1, torch.where(valid, b, 0) + offs[None, :], valid.float())
         yield s, oh
 
 

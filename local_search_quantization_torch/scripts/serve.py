@@ -43,11 +43,15 @@ frame's length is unknowable) and a truncated frame. A well-formed count
 above the 512 MB cap has its frame drained (with a note on stderr first)
 and is answered as an error.
 
-Beside the reference: `--device cuda|cpu` replaces `--platform`; `--mesh N`
-with N > 0 exits before "ready" (the sharded query, module parallel/, is not
-ported); stderr names the device and the kernels the warm-up loaded and,
-at the end of the stream, the kernel launches the requests made
-(`ops/launch_counts`; all 0 on the CPU).
+`--mesh N` serves over an N-device data mesh (`Index.search(mesh=...)`: each
+shard's top-k merged, the sharded codes cached across requests): the first N
+CUDA devices, or N "cpu" entries with `--device cpu`; fewer than N cards, or a
+nonzero `--nprobe` default with it, exits before "ready" (a per-request
+nprobe answers as an error in mesh mode).
+
+Beside the reference: `--device cuda|cpu` replaces `--platform`; stderr names
+the device and the kernels the warm-up loaded and, at the end of the stream,
+the kernel launches the requests made (`ops/launch_counts`; all 0 on the CPU).
 """
 
 from __future__ import annotations
@@ -64,8 +68,9 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from local_search_quantization_torch import _build  # noqa: E402
-from local_search_quantization_torch.index import Index, _not_ported  # noqa: E402
+from local_search_quantization_torch.index import Index  # noqa: E402
 from local_search_quantization_torch.ops import launch_counts  # noqa: E402
+from local_search_quantization_torch.parallel.mesh import data_mesh  # noqa: E402
 from local_search_quantization_torch.utils.device import entry_device  # noqa: E402
 
 # Per-request payload cap for binary frames, in bytes: over-cap but
@@ -100,18 +105,31 @@ def main(argv=None) -> None:
                     help="torch device (default: cuda; raises without a GPU, "
                          "so pass cpu to run on the CPU)")
     ap.add_argument("--mesh", type=int, default=0,
-                    help="serve over an N-device mesh: not ported (module "
-                         "parallel/); any N > 0 exits before 'ready'")
+                    help="serve over an N-device data mesh of --device's type "
+                         "(Index.search(mesh=...): per-shard select + merge, "
+                         "sharded codes cached across requests); 0 = single-"
+                         "device. Exhaustive scans only: nprobe requests are "
+                         "answered as errors in mesh mode.")
     ap.add_argument("--no-warmup", action="store_true",
                     help="skip the kernel build and the warm-up search")
     args = ap.parse_args(argv)
     if args.mesh < 0:
         raise SystemExit(f"--mesh must be >= 0, got {args.mesh}")
-    if args.mesh:
-        raise SystemExit(f"--mesh {args.mesh}: "
-                         + str(_not_ported("serving over a device mesh", "parallel/")))
+    if args.mesh and args.nprobe:
+        # Fail fast: every default query would otherwise answer as an error
+        # after a healthy-looking "ready" line.
+        raise SystemExit("--mesh and a nonzero --nprobe default are incompatible "
+                         "(per-request nprobe still answers as an error in mesh mode)")
 
     device = entry_device(args.device)
+    mesh = None
+    if args.mesh:
+        have = torch.cuda.device_count() if device.type == "cuda" else args.mesh
+        if have < args.mesh:
+            raise SystemExit(f"--mesh {args.mesh} needs {args.mesh} devices, have {have} "
+                             f"(pass --device cpu for a mesh of CPU entries)")
+        mesh = data_mesh([torch.device("cuda", i) for i in range(args.mesh)]
+                         if device.type == "cuda" else ["cpu"] * args.mesh)
     idx = Index.load(args.index, device=device)
     kernels = []
     if not args.no_warmup:
@@ -119,9 +137,11 @@ def main(argv=None) -> None:
             kernels = list(_build.load_all(WARM_KERNELS))
         # Warm with the server's default precision, so the first request of
         # a bf16 server pays for nothing the warm-up could have done.
-        idx.search(np.zeros((1, idx.d), np.float32), min(args.k, idx.n),
+        idx.search(np.zeros((1, idx.d), np.float32), min(args.k, idx.n), mesh=mesh,
                    precision=args.precision)
     name = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
+    if mesh is not None:
+        name += f", mesh of {len(mesh.devices)}: {', '.join(map(str, mesh.devices))}"
     _note(f"device {name}; kernels loaded by the warm-up: "
           f"{', '.join(kernels) if kernels else 'none'}")
     launch_counts.zero()  # from here on, the requests' launches only
@@ -214,7 +234,7 @@ def main(argv=None) -> None:
                 out = {"id": req.get("id"), "added": added, "n": idx.n}
             elif op == "query":
                 res = idx.search(parse_vectors(req, frame),
-                                 int(req.get("k", args.k)),
+                                 int(req.get("k", args.k)), mesh=mesh,
                                  nprobe=int(req.get("nprobe", args.nprobe)) or None,
                                  refine=int(req.get("refine", args.refine)) or None,
                                  precision=str(req.get("precision", args.precision)))

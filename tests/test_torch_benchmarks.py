@@ -29,6 +29,7 @@ from local_search_quantization_torch.benchmarks import (
     bench_ivf,
     bench_kernel_variants,
     bench_query,
+    bench_query_multichip,
     bench_scale,
     bench_select,
     bench_serve,
@@ -89,6 +90,10 @@ TWINS = {
         bench_query, ["gather", "50", "--n", "5000", "--nq", "16"],
         [rf"mode=gather/exact: {NUM} qps over 5,000 codes \(k=50\) = \S+ code-dists/s  "
          rf"\[first={NUM}s steady={NUM}s\]"]),
+    "bench_query_multichip": (
+        bench_query_multichip, ["50"],
+        [rf"sharded_{name}: {NUM} qps over 3,000 codes x 8 shards \(k=50\)  "
+         rf"\[compile\+first={NUM}s steady={NUM}s\]" for name in ("lsq", "pq")]),
     "bench_select": (
         bench_select, ["100", "8", "1024", "--n", "70000"],
         [r"note: the tb/nqt sweeps are the TPU's block geometry, which the port does not "
@@ -131,11 +136,13 @@ def made(tmp_path_factory):
     return {"index": str(root / "index"), "cache": str(root / "cache")}
 
 
-# bench_scale's phases at a tiny size: its argv takes only the phase names
-# (as the reference's), so the test gives the phase functions their sizes.
-SCALE_TINY = {"encode64m": {"n_total": 256, "chunk": 128, "ilsiter": 2},
-              "query100m": {"n_total": 3000, "nq": 8, "segment": 2048},
-              "k10000": {"n": 12000, "nq": 4}}
+# bench_scale's and bench_query_multichip's functions at a tiny size: their
+# argv takes only what the reference's does (phase names, k), so the test
+# gives the functions their sizes.
+TINY = {bench_scale: {"encode64m": {"n_total": 256, "chunk": 128, "ilsiter": 2},
+                      "query100m": {"n_total": 3000, "nq": 8, "segment": 2048},
+                      "k10000": {"n": 12000, "nq": 4}},
+        bench_query_multichip: {"run": {"n": 3000, "nq": 16}}}
 
 
 def _argv(name: str, made) -> list[str]:
@@ -145,10 +152,8 @@ def _argv(name: str, made) -> list[str]:
 @pytest.mark.parametrize("name", sorted(TWINS))
 def test_twin_runs_on_the_cpu_and_prints_its_lines(name, made, capsys, monkeypatch):
     module, _, patterns = TWINS[name]
-    if module is bench_scale:
-        for phase, sizes in SCALE_TINY.items():
-            monkeypatch.setattr(bench_scale, phase,
-                                functools.partial(getattr(bench_scale, phase), **sizes))
+    for fn, sizes in TINY.get(module, {}).items():
+        monkeypatch.setattr(module, fn, functools.partial(getattr(module, fn), **sizes))
     module.main(_argv(name, made) + ["--device", "cpu"])
     out = capsys.readouterr().out.strip().splitlines()
     assert out[0] == CPU_LINE

@@ -159,16 +159,20 @@ def test_rvq_add_delete_keep_jax_codes_and_ids(data, jax_dirs, tmp_path):
     _assert_same_search(back.search(xq, k=K), ti.search(xq, k=K))
 
 
-def test_not_ported_surfaces_raise(data, jax_dirs, tmp_path):
-    """The mesh still raises by the name of its module; RVQ and IVF, which
-    once did, work (RVQ: the cross-load and mutation tests); IVF: a partition built by the JAX package loads, searches to
-    the same ids, and survives a save."""
+def test_once_unported_surfaces_answer_as_jax(data, jax_dirs, tmp_path):
+    """The surfaces that once raised "not ported" work: the mesh search
+    returns the single-device ids (`tests/test_torch_parallel.py` holds it to
+    JAX's mesh search); RVQ (the cross-load and mutation tests); IVF: a
+    partition built by the JAX package loads, searches to the same ids, and
+    survives a save."""
+    from local_search_quantization_torch.parallel import data_mesh
+
     xt, xb, xq = data
     ti = TIndex.load(jax_dirs["pq"], device="cpu")
     with pytest.raises(ValueError, match="no IVF partition"):
         ti.search(xq, k=K, nprobe=4)
-    with pytest.raises(NotImplementedError, match="module parallel/"):
-        ti.search(xq, k=K, mesh=object())
+    sharded, single = ti.search(xq, k=K, mesh=data_mesh(["cpu"] * 3)), ti.search(xq, k=K)
+    assert torch.equal(sharded.ids, single.ids) and torch.equal(sharded.dists, single.dists)
     ti.build_ivf(16, sample=1500, iters=2)
     assert ti.ivf.nlist == 16 == ti.meta["ivf_nlist"]
     full = ti.search(xq, k=K, nprobe=16)

@@ -706,3 +706,37 @@ def test_serve_twin_on_the_card_answers_as_an_in_process_search(cuda, tmp_path):
     idx = Index.load(path, device=cuda)
     np.testing.assert_array_equal(head["ids"], idx.search(Q, k=10).ids.cpu().numpy())
     np.testing.assert_array_equal(np.asarray(r2["ids"]), idx.search(Q[:5], k=3).ids.cpu().numpy())
+
+
+@pytest.mark.parametrize("shards", [3, 4])
+@pytest.mark.parametrize("k", [1000, 10_000])
+def test_mesh_search_on_the_card_matches_single_device(cuda, shards, k):
+    """A mesh of `shards` x cuda:0 over 300,007 rows: each shard's K2 and the
+    merge return the single-device route's ids and distances exactly, and
+    the sharded codebook update (with a pad row at 3 shards) equals the
+    single-device one bit for bit and repeats: X is integer-valued, as SIFT
+    is, so every partial sum of G and A^T X is exact in f32 in any order."""
+    from local_search_quantization_torch.ops import adc, launch_counts, solver
+    from local_search_quantization_torch.parallel import data_mesh, shard_batch
+    from local_search_quantization_torch.parallel.encode import sharded_update_codebooks
+    from local_search_quantization_torch.parallel.query import sharded_linscan_lsq
+
+    rng = np.random.default_rng(4)
+    n, d, m, h = 300_007, 32, 7, 256
+    C = torch.as_tensor(rng.normal(size=(m, h, d)).astype(np.float32), device=cuda)
+    B = rng.integers(0, h, size=(n, m)).astype(np.int32)
+    Q = torch.as_tensor(rng.normal(size=(64, d)).astype(np.float32), device=cuda)
+    dbn = rng.random(n).astype(np.float32)
+    mesh = data_mesh([cuda] * shards)
+    launch_counts.zero()
+    got = sharded_linscan_lsq(mesh, B, Q, C, dbn, k)
+    assert launch_counts.read()["k2_filter"] >= shards  # one K2 a shard at least
+    want = adc.linscan_lsq(B, Q, C, torch.as_tensor(dbn, device=cuda), k=k)
+    assert torch.equal(got.ids, want.ids) and torch.equal(got.dists, want.dists)
+    X = torch.as_tensor(rng.integers(0, 128, size=(20_000, d)).astype(np.float32),
+                        device=cuda)
+    Bt = torch.as_tensor(B[:20_000], device=cuda)
+    Xs, Bs = shard_batch(mesh, X), shard_batch(mesh, Bt)
+    C1 = sharded_update_codebooks(mesh, Xs, Bs, h, n_valid=20_000)
+    assert torch.equal(C1, sharded_update_codebooks(mesh, Xs, Bs, h, n_valid=20_000))
+    assert torch.equal(C1, solver.update_codebooks(X, Bt, h))

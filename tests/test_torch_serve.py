@@ -6,8 +6,9 @@ Mirrors tests/test_serve.py: build and serve for pq and lsq with parity to
 an in-process scan of the as-built codes, binary frames, the two fatal exits
 (and the stderr note before a drain), the protocol fuzz, and running the
 twins as files from a directory outside the repo (where the server's last
-stderr note, its requests' kernel launches, is all zeros). Beside it: `--mesh N`
-exits before "ready" naming parallel/, `--method rvq` builds a directory the
+stderr note, its requests' kernel launches, is all zeros). Beside it: `--mesh 2`
+on the CPU answers as the unsharded server and refuses an nprobe default
+before "ready", `--method rvq` builds a directory the
 JAX package loads, and without a GPU every twin exits
 nonzero unless given `--device cpu`. One tiny index per method is built per
 module and copied for each test that mutates it.
@@ -380,12 +381,48 @@ def test_serve_protocol_fuzz(index, rng):
         p.kill()
 
 
-def test_serve_mesh_exits_before_ready_naming_parallel(built):
+def test_serve_mesh_answers_as_the_unsharded_server(built):
+    """`--device cpu --mesh 2` serves over a mesh of two CPU entries (warm-up
+    included) and answers each query with the unsharded server's ids and
+    distances."""
+    q = np.random.default_rng(5).normal(size=(6, 16)).astype(np.float32) * 40 + 120
+    reqs = "".join(json.dumps({"id": i, "vectors": q[i:i + 3].tolist(), "k": k}) + "\n"
+                   for i, k in ((0, 5), (1, 40), (2, 7))) + "EOF\n"
+    answers = {}
+    for mesh in ("0", "2"):
+        out = subprocess.run(twin("serve", "--index", built["lsq"], "--k", "5", "--device",
+                                  "cpu", "--mesh", mesh),
+                             input=reqs, cwd=REPO, env=ENV, capture_output=True, text=True,
+                             timeout=600)
+        assert out.returncode == 0, out.stderr
+        lines = [json.loads(line) for line in out.stdout.splitlines()]
+        assert lines[0]["ready"] is True and len(lines) == 4
+        assert all("error" not in r for r in lines[1:]), lines
+        answers[mesh] = lines[1:]
+    assert "mesh of 2: cpu, cpu" in out.stderr
+    assert answers["2"] == answers["0"]
+    assert [len(r["ids"][0]) for r in answers["2"]] == [5, 40, 7]
+
+
+def test_serve_mesh_with_fewer_cards_than_shards_exits_before_ready(built, monkeypatch,
+                                                                    capsys):
+    """On CUDA the mesh takes the first N cards; with fewer it exits with the
+    reference's message before loading the index (one card is faked here)."""
+    from local_search_quantization_torch.scripts import serve
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    with pytest.raises(SystemExit, match="--mesh 2 needs 2 devices, have 1"):
+        serve.main(["--index", built["pq"], "--mesh", "2"])
+    assert capsys.readouterr().out == ""
+
+
+def test_serve_mesh_with_an_nprobe_default_exits_before_ready(built):
     out = subprocess.run(twin("serve", "--index", built["pq"], "--device", "cpu",
-                              "--mesh", "2"),
+                              "--mesh", "2", "--nprobe", "4"),
                          cwd=REPO, env=ENV, capture_output=True, text=True, timeout=600)
     assert out.returncode != 0 and out.stdout == ""
-    assert "parallel/" in out.stderr and "not ported" in out.stderr
+    assert "--mesh and a nonzero --nprobe default are incompatible" in out.stderr
 
 
 def test_build_twin_builds_an_rvq_directory_that_jax_loads(tmp_path):
