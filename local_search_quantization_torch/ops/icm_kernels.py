@@ -18,7 +18,10 @@
 - `icm_sweeps_step`: K5 at one stage of its redesign for this card (the
   first port's visit, the same with its loads hoisted, the kernel that
   runs), so that one run times them side by side; a measurement tool on no
-  path, with K5's plain version.
+  path, with K5's plain version. `ils_encode_step` does the same for K1.
+- `ils_visits_needed`: the row-visits of K1's encode whose inputs changed,
+  the ones the kernel does; it skips the rest, whose argmin is the code the
+  row already holds.
 
 Each wrapper takes the plain version only for tensors on the CPU; a CUDA
 tensor goes to the kernel, or the call raises.
@@ -42,8 +45,8 @@ def _ptr(t: torch.Tensor | None) -> int | None:
 
 
 # K1's launch geometry, as csrc/ils_encode.cu sets it: 4 rows per block,
-# each with its [m, h] f32 unaries and 2m int codes in shared memory, at
-# most 32 candidates per lane.
+# each with its [m, h] f32 unaries in shared memory (the codes live in
+# registers), at most 32 candidates per lane.
 _ILS_WARPS, _SMEM_LIMIT, _ILS_MAX_H = 4, 227 * 1024, 1024
 
 
@@ -52,8 +55,7 @@ def ils_kernel_fits(m: int, h: int) -> bool:
     the same sizes as the library's `lsq_ils_smem_bytes`/`lsq_ils_max_h`,
     with no build. `ils_encode(condition_mode="kernel")` takes the "matmul"
     path for a shape K1 cannot hold."""
-    return (1 <= m <= 32 and h <= _ILS_MAX_H
-            and _ILS_WARPS * (m * h * 4 + 2 * m * 4) <= _SMEM_LIMIT)
+    return 1 <= m <= 32 and h <= _ILS_MAX_H and _ILS_WARPS * m * h * 4 <= _SMEM_LIMIT
 
 
 def ils_encode_streamed_reference(unaries, binaries, xsq, B0, orders,
@@ -106,21 +108,55 @@ def ils_encode_streamed_reference(unaries, binaries, xsq, B0, orders,
             stats.to(unaries.device) if with_stats else None)
 
 
-def ils_encode_streamed(unaries, binaries, xsq, B0, orders, pert_keys,
-                        pert_codes, *, icmiter: int, milestones=(),
-                        with_stats: bool = False):
-    """K1: the whole ILS encode, one kernel launch for a CUDA tensor.
+def ils_visits_needed(unaries, binaries, xsq, B0, orders, pert_keys, pert_codes, *,
+                      icmiter: int) -> torch.Tensor:
+    """The row-visits of K1's encode whose inputs changed: bool
+    [rounds, icmiter * m, n], visit s of round r being codebook
+    orders[r, s % m].
 
-    Same arguments and results as `ils_encode_streamed_reference`, which
-    CPU tensors get. Counts its launches in `ils_encode_streamed.launches`.
+    Same inputs as `ils_encode_streamed_reference`, whose loop this replays
+    (every visit done, in plain PyTorch on the inputs' device). A visit to j
+    reads every code but j's own, so it is needed when it is j's first in
+    its round (the perturbation precedes it) or when another code changed
+    since j's last visit; K1 skips the others, whose scores are the same
+    floats as at j's last visit and whose argmin is the code j holds. The
+    sum is the number of visits K1 does on these inputs.
     """
+    n, m, h = unaries.shape
+    rounds, npert = orders.shape[0], pert_codes.shape[2]
     dev = unaries.device
-    if dev.type == "cpu":
-        return ils_encode_streamed_reference(
-            unaries, binaries, xsq, B0, orders, pert_keys, pert_codes,
-            icmiter=icmiter, milestones=milestones, with_stats=with_stats)
-    if dev.type != "cuda":
-        raise ValueError(f"ils_encode_streamed: unsupported device {dev}")
+    rows = torch.arange(n, device=dev)
+    best = B0.long().clone()
+    best_cost = cost_from_luts(xsq, unaries, binaries, best)
+    out = torch.zeros((rounds, icmiter * m, n), dtype=torch.bool, device=dev)
+    for r in range(rounds):
+        cur = best.clone()
+        keys = pert_keys[r].clone()
+        for p in range(npert):
+            pos = torch.argmin(keys, dim=1)
+            keys[rows, pos] = 1e30
+            cur[rows, pos] = pert_codes[r, :, p].long()
+        need = torch.ones((n, m), dtype=torch.bool, device=dev)
+        for s, j in enumerate(orders[r].tolist() * icmiter):
+            out[r, s] = need[:, j]
+            new = torch.argmin(_condition(unaries[:, j], binaries[:, j], cur, j), dim=1)
+            need = need | (new != cur[:, j])[:, None]
+            need[:, j] = False
+            cur[:, j] = new
+        newcost = cost_from_luts(xsq, unaries, binaries, cur)
+        better = newcost < best_cost
+        best = torch.where(better[:, None], cur, best)
+        best_cost = torch.where(better, newcost, best_cost)
+    return out
+
+
+def _ils_launch(entry, lead, what, unaries, binaries, xsq, B0, orders, pert_keys,
+                pert_codes, icmiter, milestones, with_stats):
+    """Check K1's inputs on the card and launch `entry` of its library
+    (`lead`: the arguments before the common ones). Returns (the results,
+    as `ils_encode_streamed_reference` gives them, and whether it launched:
+    not for n == 0)."""
+    dev = unaries.device
     n, m, h = unaries.shape
     rounds, npert = orders.shape[0], pert_codes.shape[2]
     want = {
@@ -136,16 +172,16 @@ def ils_encode_streamed(unaries, binaries, xsq, B0, orders, pert_keys,
         if t.device != dev or t.dtype != dtype or tuple(t.shape) != shape \
                 or not t.is_contiguous():
             raise ValueError(
-                f"ils_encode_streamed: {name} must be a contiguous {dtype} "
+                f"{what}: {name} must be a contiguous {dtype} "
                 f"{shape} tensor on {dev}, got {t.dtype} {tuple(t.shape)} "
                 f"on {t.device}")
     if not 1 <= m <= 32 or not 0 <= npert <= m:
-        raise ValueError(f"ils_encode_streamed: needs 1 <= m <= 32 and "
+        raise ValueError(f"{what}: needs 1 <= m <= 32 and "
                          f"0 <= npert <= m, got m={m}, npert={npert}")
     lib = _build.load("ils_encode")
     lib.lsq_ils_smem_bytes.argtypes = [_I, _I]
-    if lib.lsq_ils_smem_bytes(m, h) > 227 * 1024 or h > lib.lsq_ils_max_h():
-        raise ValueError(f"ils_encode_streamed: m={m}, h={h} needs more "
+    if lib.lsq_ils_smem_bytes(m, h) > _SMEM_LIMIT or h > lib.lsq_ils_max_h():
+        raise ValueError(f"{what}: m={m}, h={h} needs more "
                          "shared memory or registers than the kernel has")
     milestones = tuple(milestones)
     n_ms = len(milestones)
@@ -157,25 +193,86 @@ def ils_encode_streamed(unaries, binaries, xsq, B0, orders, pert_keys,
              if with_stats else None)
     ms_rounds = torch.tensor([r - 1 for r in milestones], dtype=torch.int32,
                              device=dev)
-    if n == 0:
-        return (out_b, out_cost, ms_b if n_ms else None,
-                ms_cost if n_ms else None,
-                stats.float() if with_stats else None)
-    lib.lsq_ils_encode.argtypes = [_P] * 8 + [_I] * 7 + [_P] * 6
-    lib.lsq_ils_encode.restype = _I
-    err = lib.lsq_ils_encode(
-        _ptr(unaries), _ptr(binaries), _ptr(xsq), _ptr(B0), _ptr(orders),
-        _ptr(pert_keys), _ptr(pert_codes), _ptr(ms_rounds),
-        n, m, h, rounds, icmiter, npert, n_ms,
-        _ptr(out_b), _ptr(out_cost), _ptr(ms_b), _ptr(ms_cost), _ptr(stats),
-        torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(lib, err, "ils_encode kernel launch")
-    ils_encode_streamed.launches += 1
+    if n:
+        fn = getattr(lib, entry)
+        fn.argtypes = [_I] * len(lead) + [_P] * 8 + [_I] * 7 + [_P] * 6
+        fn.restype = _I
+        err = fn(*lead,
+                 _ptr(unaries), _ptr(binaries), _ptr(xsq), _ptr(B0), _ptr(orders),
+                 _ptr(pert_keys), _ptr(pert_codes), _ptr(ms_rounds),
+                 n, m, h, rounds, icmiter, npert, n_ms,
+                 _ptr(out_b), _ptr(out_cost), _ptr(ms_b), _ptr(ms_cost), _ptr(stats),
+                 torch.cuda.current_stream(dev).cuda_stream)
+        _build.check(lib, err, f"{what} kernel launch")
     return (out_b, out_cost, ms_b if n_ms else None, ms_cost if n_ms else None,
-            stats.float() if with_stats else None)
+            stats.float() if with_stats else None), n > 0
+
+
+def ils_encode_streamed(unaries, binaries, xsq, B0, orders, pert_keys,
+                        pert_codes, *, icmiter: int, milestones=(),
+                        with_stats: bool = False):
+    """K1: the whole ILS encode, one kernel launch for a CUDA tensor.
+
+    Same arguments and results as `ils_encode_streamed_reference`, which
+    CPU tensors get. Counts its launches in `ils_encode_streamed.launches`.
+    """
+    dev = unaries.device
+    if dev.type == "cpu":
+        return ils_encode_streamed_reference(
+            unaries, binaries, xsq, B0, orders, pert_keys, pert_codes,
+            icmiter=icmiter, milestones=milestones, with_stats=with_stats)
+    if dev.type != "cuda":
+        raise ValueError(f"ils_encode_streamed: unsupported device {dev}")
+    out, launched = _ils_launch("lsq_ils_encode", (), "ils_encode_streamed", unaries,
+                                binaries, xsq, B0, orders, pert_keys, pert_codes,
+                                icmiter, milestones, with_stats)
+    ils_encode_streamed.launches += launched
+    return out
 
 
 ils_encode_streamed.launches = 0
+
+# K1's redesign for this card, stage by stage (csrc/ils_encode.cu, `Step`
+# and the lane map), in the order of `lsq_ils_encode_step`'s `step`.
+ILS_STEPS = ("present", "hoisted", "hoisted_packed", "skip", "skip_packed")
+
+
+def ils_encode_step(unaries, binaries, xsq, B0, orders, pert_keys, pert_codes, *,
+                    icmiter: int, step: str, milestones=(), with_stats: bool = False):
+    """K1 as it stood at one stage of its redesign: "present" is the first
+    port's visit loop (one table row's loads, then its adds, k by k),
+    "hoisted" a visit's rows loaded before its first add, "skip" that with
+    the visits whose inputs did not change skipped; "_packed" loads 16
+    bytes a lane in place of one element ("skip_packed" is the kernel
+    `ils_encode_streamed` runs at these shapes). All give K1's results; a
+    run times them side by side.
+
+    Arguments and results as `ils_encode_streamed`, whose plain version CPU
+    tensors get. On the card it takes eight candidates a lane only:
+    128 < h <= 256 and h % 8 == 0. Counts its launches per step in
+    `ils_encode_step.launches`.
+    """
+    if step not in ILS_STEPS:
+        raise ValueError(f"step must be one of {ILS_STEPS}, got {step!r}")
+    dev = unaries.device
+    if dev.type == "cpu":
+        return ils_encode_streamed_reference(
+            unaries, binaries, xsq, B0, orders, pert_keys, pert_codes,
+            icmiter=icmiter, milestones=milestones, with_stats=with_stats)
+    if dev.type != "cuda":
+        raise ValueError(f"ils_encode_step: unsupported device {dev}")
+    h = unaries.shape[2]
+    if not (128 < h <= 256 and h % 8 == 0):
+        raise ValueError(f"ils_encode_step: needs 128 < h <= 256 and h % 8 == 0, got h={h}")
+    out, launched = _ils_launch("lsq_ils_encode_step", (ILS_STEPS.index(step),),
+                                f"ils_encode_step {step}", unaries, binaries, xsq, B0,
+                                orders, pert_keys, pert_codes, icmiter, milestones,
+                                with_stats)
+    ils_encode_step.launches[step] += launched
+    return out
+
+
+ils_encode_step.launches = {s: 0 for s in ILS_STEPS}
 
 
 def binaries_to_j_stacked(binaries: torch.Tensor) -> torch.Tensor:

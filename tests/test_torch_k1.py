@@ -1,0 +1,186 @@
+"""K1's skip of the visits whose inputs did not change, shown exact on the CPU.
+
+K1 (`csrc/ils_encode.cu`) skips a visit to codebook j when no other code of
+the row changed since j's last visit in the round: its scores would be the
+same floats, so its argmin the code j holds. `ils_visits_needed` counts the
+visits K1 does. Here a replay of the plain loop, instrumented at every
+visit, shows that each visit it leaves out would have kept its code, that
+its count is a brute-force count's, and that a replay which skips them ends
+with the Pallas kernel's codes (interpret mode). Inputs are made with numpy
+from a seed.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from local_search_quantization_tpu.ops import luts as jluts
+from local_search_quantization_tpu.ops.icm_pallas import fused_ils_encode
+from local_search_quantization_torch.ops import luts as tluts
+from local_search_quantization_torch.ops.icm import _condition, cost_from_luts
+from local_search_quantization_torch.ops.icm_kernels import (
+    ILS_STEPS,
+    ils_encode_step,
+    ils_encode_streamed_reference,
+    ils_visits_needed,
+)
+
+torch.set_num_threads(1)
+
+
+def _t(a):
+    return torch.as_tensor(np.array(a))
+
+
+def _inputs(n, d, m, h, R, npert, seed, integer=False):
+    """K1's inputs from numpy: (unaries, binaries, xsq, B0, orders, keys, codes)."""
+    rng = np.random.default_rng(seed)
+    if integer:
+        X = rng.integers(-3, 4, (n, d)).astype(np.float32)
+        C = rng.integers(-1, 2, (m, h, d)).astype(np.float32)
+    else:
+        X = rng.normal(size=(n, d)).astype(np.float32)
+        C = (rng.normal(size=(m, h, d)) * 0.4).astype(np.float32)
+    X, C = _t(X), _t(C)
+    return (tluts.get_unaries(X, C), tluts.get_binaries(C), (X * X).sum(-1),
+            _t(rng.integers(0, h, (n, m), dtype=np.int32)),
+            _t(np.stack([rng.permutation(m) for _ in range(R)]).astype(np.int32)),
+            _t(rng.random((R, n, m), dtype=np.float32)),
+            _t(rng.integers(0, h, (R, n, npert), dtype=np.int32)))
+
+
+def _replay(u, b, xsq, B0, orders, pkeys, pcodes, icmiter, on_visit, keep=None):
+    """The plain loop of `ils_encode_streamed_reference`, calling
+    on_visit(r, s, j, scores, cur) before each visit writes; where `keep`
+    ([rounds, icmiter*m, n] bool) is given, a row writes only where it is
+    True, as K1 does. Returns the final codes and costs."""
+    n, m, _ = u.shape
+    rows = torch.arange(n)
+    best = B0.long().clone()
+    best_cost = cost_from_luts(xsq, u, b, best)
+    for r in range(orders.shape[0]):
+        cur = best.clone()
+        keys = pkeys[r].clone()
+        for p in range(pcodes.shape[2]):
+            pos = torch.argmin(keys, dim=1)
+            keys[rows, pos] = 1e30
+            cur[rows, pos] = pcodes[r, :, p].long()
+        for s, j in enumerate(orders[r].tolist() * icmiter):
+            scores = _condition(u[:, j], b[:, j], cur, j)
+            on_visit(r, s, j, scores, cur)
+            new = torch.argmin(scores, dim=1)
+            cur[:, j] = new if keep is None else torch.where(keep[r, s], new, cur[:, j])
+        newcost = cost_from_luts(xsq, u, b, cur)
+        better = newcost < best_cost
+        best = torch.where(better[:, None], cur, best)
+        best_cost = torch.where(better, newcost, best_cost)
+    return best.int(), best_cost
+
+
+def test_a_visit_left_out_would_have_kept_its_code():
+    """m=7, h=32, icmiter=6, npert=2, 3 rounds: at every visit that
+    `ils_visits_needed` does not count, the argmin of the scores is the code
+    the row holds; the count is a brute-force count (a visit is needed when
+    it is j's first in the round or another code differs from what it was at
+    j's last visit); and the skip engages."""
+    n, m, h, R, icmiter, npert = 384, 7, 32, 3, 6, 2
+    args = _inputs(n, 16, m, h, R, npert, seed=3)
+    needed = ils_visits_needed(*args, icmiter=icmiter)
+    assert needed.shape == (R, icmiter * m, n) and needed.dtype == torch.bool
+    brute = torch.zeros_like(needed)
+    last = {}
+    skipped_kept = []
+
+    def on_visit(r, s, j, scores, cur):
+        if s < m:  # j's first visit of this round
+            brute[r, s] = True
+        else:
+            others = [k for k in range(m) if k != j]
+            brute[r, s] = (cur[:, others] != last[j][:, others]).any(1)
+        last[j] = cur.clone()
+        left_out = ~needed[r, s]
+        skipped_kept.append(bool((torch.argmin(scores, 1)[left_out]
+                                  == cur[left_out, j]).all()))
+
+    _replay(*args, icmiter, on_visit)
+    assert all(skipped_kept)
+    assert torch.equal(needed, brute)
+    count, total = int(needed.sum()), needed.numel()
+    assert 0 < count < total
+    assert needed[:, :m].all()  # the perturbation precedes every round's first sweep
+
+
+def test_skipping_replay_gives_the_pallas_kernels_codes():
+    """A replay that does only the needed visits (what K1 does) ends with
+    the codes and costs of the Pallas kernel in interpret mode, on an
+    integer fixture where the TPU kernel's bf16 LUTs and sums are exact."""
+    n, m, h, R, icmiter, npert = 64, 4, 16, 3, 3, 2
+    rng = np.random.default_rng(0)
+    X = rng.integers(-3, 4, size=(n, 16)).astype(np.float32)
+    C = rng.integers(-1, 2, size=(m, h, 16)).astype(np.float32)
+    B0 = rng.integers(0, h, size=(n, m), dtype=np.int32)
+    unaries = jluts.get_unaries(jnp.asarray(X), jnp.asarray(C))
+    binaries = jluts.get_binaries(jnp.asarray(C))
+    xsq = jnp.sum(jnp.asarray(X) ** 2, axis=-1)
+    orders = np.stack([rng.permutation(m) for _ in range(R)]).astype(np.int32)
+    key = jax.random.PRNGKey(11)
+    jB, jcost, *_ = fused_ils_encode(key, jnp.asarray(orders), unaries, binaries, xsq,
+                                     jnp.asarray(B0), ilsiter=R, icmiter=icmiter,
+                                     npert=npert, tile=n, interpret=True)
+    kk, kc = jax.random.split(key)
+    pkeys = jax.random.uniform(kk, (R, n, m), jnp.float32)
+    pcodes = jax.random.randint(kc, (R, n, npert), 0, h, dtype=jnp.int32)
+    args = tuple(_t(a) for a in (unaries, binaries, xsq, B0, orders, pkeys, pcodes))
+    needed = ils_visits_needed(*args, icmiter=icmiter)
+    B, cost = _replay(*args, icmiter, lambda *a: None, keep=needed)
+    np.testing.assert_array_equal(B.numpy(), np.asarray(jB))
+    np.testing.assert_array_equal(cost.numpy(), np.asarray(jcost))
+    assert not needed.all() and (np.asarray(jB) != B0).any()
+
+
+@pytest.mark.parametrize("m", [1, 2])
+def test_visits_needed_at_one_and_two_codebooks(m):
+    """m=1: the first visit of each round is needed and no other (no code
+    but j's own, which a visit does not read). m=2: a visit is needed only
+    where the other code's visit just before it was (and so could move it)."""
+    R, icmiter = 3, 4
+    args = _inputs(96, 8, m, 16, R, 1, seed=5)
+    needed = ils_visits_needed(*args, icmiter=icmiter)
+    assert needed[:, :m].all()
+    if m == 1:
+        assert not needed[:, 1:].any()
+    else:
+        assert not needed.all()
+        for s in range(2, icmiter * m):
+            assert not (needed[:, s] & ~needed[:, s - 1]).any()
+
+
+def test_visits_needed_runs_the_plain_loop_on_the_plain_versions_inputs():
+    """The helper replays the plain version: the rows' first sweeps are all
+    needed, and the visits it counts shrink as the rows converge."""
+    n, m, h, R, icmiter = 256, 7, 32, 2, 6
+    args = _inputs(n, 16, m, h, R, 2, seed=9)
+    needed = ils_visits_needed(*args, icmiter=icmiter).float()
+    per_sweep = needed.reshape(R, icmiter, m, n).mean(dim=(2, 3))
+    assert torch.all(per_sweep[:, 0] == 1)
+    assert torch.all(per_sweep[:, -1] < per_sweep[:, 1])
+
+
+def test_ils_encode_step_routes_cpu_to_plain_version_and_checks_its_step():
+    args = _inputs(48, 8, 4, 16, 2, 2, seed=2, integer=True)
+    want = ils_encode_streamed_reference(*args, icmiter=2, milestones=(1,),
+                                         with_stats=True)
+    for step in ILS_STEPS:
+        before = ils_encode_step.launches[step]
+        got = ils_encode_step(*args, icmiter=2, step=step, milestones=(1,),
+                              with_stats=True)
+        assert ils_encode_step.launches[step] == before  # no kernel on the CPU
+        for g, w in zip(got, want):
+            torch.testing.assert_close(g, w, rtol=0, atol=0)
+    with pytest.raises(ValueError, match="step must be one of"):
+        ils_encode_step(*args, icmiter=2, step="interleaved")
+    meta = [t.to("meta") for t in args]
+    with pytest.raises(ValueError, match="unsupported device"):
+        ils_encode_step(*meta, icmiter=2, step="skip")

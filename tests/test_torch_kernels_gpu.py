@@ -20,9 +20,12 @@ from local_search_quantization_torch.ops.icm_kernels import (
     fused_icm_sweeps_reference,
     icm_sweeps_dissect,
     icm_sweeps_dissect_reference,
+    ILS_STEPS,
+    ils_encode_step,
     ils_encode_streamed,
     ils_encode_streamed_reference,
     ils_kernel_fits,
+    ils_visits_needed,
 )
 from local_search_quantization_torch.ops import l2_probe
 from local_search_quantization_torch.ops import select_kernels as sk
@@ -73,7 +76,13 @@ def _k1_inputs(dev, n, d, m, h, R, npert, integer, seed=0):
     (4096, 32, 7, 64, 3, 3, True),
     (3001, 16, 4, 20, 2, 2, False),  # h < 32: idle lanes; ragged last block
     (2048, 64, 8, 256, 2, 4, False),
-    (1024, 16, 3, 300, 2, 1, False),  # h > 256: 16 candidates per lane
+    (1024, 16, 3, 300, 2, 1, False),  # 16 a lane, one element each: a masked tail
+    (2048, 16, 6, 96, 2, 2, False),  # 4 a lane, one 16-byte load a row
+    (1024, 16, 7, 512, 2, 3, False),  # 16 a lane: 4 rows in flight, two chunks at m=7
+    (512, 16, 5, 1024, 2, 2, False),  # 32 a lane: 2 rows in flight, two chunks
+    (512, 16, 4, 1000, 2, 2, False),  # 32 a lane, one element each
+    (2048, 16, 1, 64, 3, 1, False),  # m=1: no pair rows; every visit after the first skipped
+    (2048, 16, 2, 256, 3, 2, False),  # m=2: one pair row a visit
 ])
 def test_k1_kernel_matches_plain_version(cuda, shape):
     n, d, m, h, R, npert, integer = shape
@@ -85,6 +94,57 @@ def test_k1_kernel_matches_plain_version(cuda, shape):
     assert ils_encode_streamed.launches == before + 1
     for g, w in zip(got, want):
         torch.testing.assert_close(g, w, rtol=0, atol=0)
+
+
+def test_k1_table_off_16_byte_alignment_takes_the_element_loads(cuda):
+    """A contiguous table that starts 4 bytes past a 16-byte boundary cannot
+    be read 16 bytes a lane: K1 takes its one-element lane map and gives
+    the same outputs."""
+    args = list(_k1_inputs(cuda, 2048, 32, 7, 256, 2, 4, False))
+    buf = torch.empty(args[1].numel() + 1, device=cuda)
+    args[1] = buf[1:].view(args[1].shape).copy_(args[1])
+    assert args[1].is_contiguous() and args[1].data_ptr() % 16 == 4
+    kw = dict(icmiter=3, milestones=(1, 2), with_stats=True)
+    got = ils_encode_streamed(*args, **kw)
+    want = ils_encode_streamed_reference(*args, **kw)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
+
+
+def test_k1_skips_visits_and_keeps_every_output_on_a_converging_fixture(cuda):
+    """icmiter=8 on continuous data: the rows converge within a round, so
+    many visits find their inputs unchanged and K1 skips them; the needed
+    count is below the total and all five outputs are the plain version's."""
+    R, icmiter = 3, 8
+    args = _k1_inputs(cuda, 4096, 32, 7, 256, R, 4, False, seed=4)
+    needed = ils_visits_needed(*args, icmiter=icmiter)
+    assert 0 < int(needed.sum()) < needed.numel()
+    kw = dict(icmiter=icmiter, milestones=(1, 2, R), with_stats=True)
+    got = ils_encode_streamed(*args, **kw)
+    want = ils_encode_streamed_reference(*args, **kw)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("shape", [(4096, 32, 7, 256, 3, 4, True),
+                                   (2048, 16, 5, 136, 2, 2, False)])
+def test_k1_stages_give_the_plain_versions_outputs(cuda, shape):
+    """Every stage of K1's redesign (the first port's loop, rows in flight
+    with either lane map, the skip with either) gives the plain version's
+    five outputs, one launch each."""
+    n, d, m, h, R, npert, integer = shape
+    args = _k1_inputs(cuda, n, d, m, h, R, npert, integer)
+    kw = dict(icmiter=4, milestones=(1, R), with_stats=True)
+    want = ils_encode_streamed_reference(*args, **kw)
+    for step in ILS_STEPS:
+        before = ils_encode_step.launches[step]
+        got = ils_encode_step(*args, step=step, **kw)
+        assert ils_encode_step.launches[step] == before + 1
+        for g, w in zip(got, want):
+            torch.testing.assert_close(g, w, rtol=0, atol=0)
+    with pytest.raises(ValueError):  # eight candidates a lane only
+        ils_encode_step(*_k1_inputs(cuda, 64, 8, 3, 64, 1, 1, True), icmiter=1,
+                        step="skip")
 
 
 def test_k1_dead_rows_never_accept(cuda):
