@@ -9,19 +9,21 @@ nothing of JAX. Phases:
 1. the card (nvidia-smi name and power limit), torch and CUDA versions, and
    the build of every kernel in `local_search_quantization_torch/csrc/`,
    one nvcc per source, all started together;
-2. K1 (the whole-ILS encode kernel) against its plain PyTorch version on the
+2. K1 (the whole-ILS encode kernel: visits on the bf16-rounded table, the
+   hi/lo cost, as the TPU kernel) against its plain PyTorch version on the
    same streamed randomness: an integer fixture, three other lane maps (m=5
-   at h=40, two candidates a lane and idle lanes; h=300 and h=512, 16 a
-   lane in two chunks of rows) and the SIFT width (n=131072, d=128, m=7,
-   h=256, ilsiter=4, icmiter=4, npert=4). Codes, costs, milestones and
-   counts must be identical: both sum in one fixed order and break ties to
-   the lowest index. At the SIFT width: the share of visits K1 skips (their
-   inputs unchanged, `ils_visits_needed`), and K1 at each stage of its
-   redesign (`ils_encode_step`: the first port's loop, rows in flight with
-   either lane map, the skip with either), every output identical, timed
-   in turns, with each build's registers (ptxas) and its table-row loads in
-   the SASS (cuobjdump): the build that runs must issue a visit's rows, 8
-   row slots, with no load serialized behind an add;
+   at h=40, two candidates a lane and idle lanes; h=300, 16 a lane one
+   element each; h=512, 16 a lane, two 16-byte loads a row) and the SIFT
+   width (n=131072, d=128, m=7, h=256, ilsiter=4, icmiter=4, npert=4).
+   Codes, costs, milestones and counts must be identical: both sum in one
+   fixed order and break ties to the lowest index. At the SIFT width: the
+   share of visits K1 skips (their inputs unchanged, `ils_visits_needed`),
+   and K1's two builds (`ils_encode_step`: "bf16", the kernel that runs,
+   and "f32", K1's function before its table was rounded, each identical
+   to its plain version), timed twice in turns, with each build's
+   registers (ptxas) and its table-row loads in the SASS (cuobjdump): the
+   build that runs must issue a visit's rows, 8 row slots of one 16-byte
+   load a lane, with no load serialized behind an add;
 2b. K5 and K6 (the per-round ICM sweeps kernels, variants "v2" and "v1")
    against their plain versions on the same codes: an integer fixture
    (n=8192), three other lane maps (m=5 at h=40, no multiple of 32; h=300,
@@ -42,9 +44,9 @@ nothing of JAX. Phases:
    none serialized;
 2d. the L2 gather probe (`csrc/l2_probe.cu`): its sums against its plain
    version, then the rate at which L2 serves random 512 B bf16 rows of a
-   6.4 MB table (K5, K6) and 1 KB f32 rows of a 12.8 MB table (K1), one
+   6.4 MB table (K1, K5, K6) and 1 KB f32 rows of a 12.8 MB table, one
    element and 16 bytes a lane, and the practical bound in ms it gives K1,
-   K5 and K6 (their gathered bytes over the better of the two rates); K1's
+   K5 and K6 (their gathered 2-byte rows over the better 512 B rate); K1's
    both ways: every visit's rows, and only the visits it needs;
 3. K2 (the ADC scan + exact top-k) against its plain version over a
    1M-row base, 1000 queries at k=1000 (the main path's query shape): ids
@@ -83,7 +85,10 @@ nothing of JAX. Phases:
    k=1000 ADC query (K2) and recall; then, outside the counted window, the
    base encode once more on the same inputs with each K1 call's needed
    visits counted (the share K1 skips over path A's base encode; codes
-   identical to path A's);
+   identical to path A's), and once through the "f32" build of
+   `ils_encode_step` with norms, query and recall: both encodes' mean exact
+   cost and recall@1/10/100/1000 (K1's mean cost within 1e-4 relative of
+   the f32 encode's, recall@10 within 0.015);
 4b. main path B: LSQ trained again from path A's OPQ/ChainQ result with
    condition_mode "fused" (K5 in every ILS round), the base encoded with
    "fused", then norms, query and recall as in path A.
@@ -339,32 +344,41 @@ def compare_k1(torch, args, label, time_it):
 
 
 # An instantiation of csrc/ils_encode.cu's kernel template in a mangled
-# name: <CPL, STEP, PACKED>.
-ILS_KERNEL = r"ils_kernelILi(\d+)ELi(\d)ELb([01])EE"
-# K1's stages (`ils_encode_step`) as (STEP, PACKED) at 8 candidates a lane;
-# "skip_packed" is the build lsq_ils_encode runs at h=256.
-ILS_BUILDS = {"present": (0, 0), "hoisted": (1, 0), "hoisted_packed": (1, 1),
-              "skip": (2, 0), "skip_packed": (2, 1)}
-ILS_ROW_SLOTS = 8  # RowsInFlight at 8 candidates a lane
+# name: <CPL, BF16, PACKED>.
+ILS_KERNEL = r"ils_kernelILi(\d+)ELb([01])ELb([01])EE"
+# `ils_encode_step`'s builds as (BF16, PACKED) at 8 candidates a lane, and
+# the table loads a row takes a lane in each: "bf16" is the build
+# lsq_ils_encode runs at h=256, one 16-byte load a row; "f32" K1's function
+# before its table was rounded, two.
+ILS_BUILDS = {"f32": (0, 1), "bf16": (1, 1)}
+ILS_LOADS_PER_ROW = {"f32": 2, "bf16": 1}
+ILS_ROW_SLOTS = 8  # RowsInFlight at 8 candidates a lane, either build
 
 
 def k1_stages(torch, args):
-    """K1 at each stage of its redesign on the SIFT-width inputs: every
-    output identical to the plain version's, each build timed twice in
-    turns, its registers and its table-row loads in the SASS. Fails if the
-    build that runs shows a load serialized behind an add or fewer than its
-    8 row slots in flight. Returns {step: ms}."""
+    """K1's two builds (`ils_encode_step`) on the SIFT-width inputs: "bf16"
+    (the kernel that runs) against the plain version and "f32" against its
+    oracle, every output identical; each build timed twice in turns, its
+    registers and its table-row loads in the SASS. Fails if the build that
+    runs shows a load serialized behind an add, or other than one 16-byte
+    load a row in each of its 8 row slots. Returns {step: ms}."""
     from local_search_quantization_torch.ops import icm_kernels as ik
 
     kw = dict(icmiter=ICMITER, milestones=(2, args[4].shape[0]), with_stats=True)
-    want = ik.ils_encode_streamed_reference(*args, **kw)
+    plain = {"f32": ik._ils_f32_reference, "bf16": ik.ils_encode_streamed_reference}
+    codes = {}
     for step in ik.ILS_STEPS:
+        want = plain[step](*args, **kw)
         got = ik.ils_encode_step(*args, step=step, **kw)
         torch.cuda.synchronize()
         same = all(torch.equal(g, w) for g, w in zip(got, want))
-        print(f"K1 stage {step!r} SIFT width: all outputs identical to the plain version: "
+        codes[step] = got[0]
+        print(f"K1 build {step!r} SIFT width: all outputs identical to its plain version: "
               f"{same}")
-        check(same, f"K1 stage {step}: outputs differ from the plain version")
+        check(same, f"K1 build {step}: outputs differ from its plain version")
+    rows = int((codes["f32"] != codes["bf16"]).any(1).sum())
+    print(f"K1 SIFT width: rows whose codes differ between the bf16 and f32 builds: {rows} "
+          f"of {K1_N}")
     turns = {step: [] for step in ik.ILS_STEPS}
     for step in ik.ILS_STEPS + ik.ILS_STEPS[::-1]:
         turns[step].append(cuda_ms(torch, lambda step=step: ik.ils_encode_step(
@@ -375,31 +389,31 @@ def k1_stages(torch, args):
                             lambda g: (int(g[1]), int(g[2])) if g[0] == "8" else None,
                             lambda key, ins: "CONSTANT" in ins
                             and (".128" in ins) == bool(key[1]))
-    print(f"[{CARD}] K1's redesign stage by stage at n={K1_N}, {K1_ROUNDS} rounds, "
-          f"icmiter={ICMITER}, npert={NPERT} (8 candidates a lane; each timed twice in "
-          "turns; table-row loads in the SASS, one element a lane = 8 loads a row, 16 B a "
-          "lane = 2; serialized: a register of the load is read before the next table "
-          "load issues; rows in flight: the longest run of row loads with none "
-          "serialized): " + "; ".join(
+    print(f"[{CARD}] K1's builds at n={K1_N}, {K1_ROUNDS} rounds, icmiter={ICMITER}, "
+          f"npert={NPERT} (8 candidates a lane; each timed twice in turns; table-row "
+          "loads in the SASS, 16 B a lane = 2 loads a row for f32, 1 for bf16; "
+          "serialized: a register of the load is read before the next table load "
+          "issues; rows in flight: the longest run of row loads with none serialized): "
+          + "; ".join(
               f"{step} {turns[step][0]:.3f} / {turns[step][1]:.3f} ms, "
               f"{regs.get(key, '?')} registers, {sass[key][0]} loads "
-              f"({sass[key][1]} serialized, {sass[key][2] / (2 if key[1] else 8):g} rows "
+              f"({sass[key][1]} serialized, {sass[key][2] / ILS_LOADS_PER_ROW[step]:g} rows "
               "in flight)" for step, key in ILS_BUILDS.items() if key in sass))
     for step, key in ILS_BUILDS.items():
         check(key in sass and sass[key][0] > 0,
               f"K1 {step}: its build or its table loads are missing from the SASS: {sass}")
-    # The build that runs: a lane's share of a row is two 16-byte loads, and
+    # The build that runs: a lane's share of a row is one 16-byte load, and
     # all 8 row slots (m - 1 = 6 rows at m=7) issue before the first add.
-    runs = ILS_BUILDS["skip_packed"]
-    check(sass[runs] == (2 * ILS_ROW_SLOTS, 0, 2 * ILS_ROW_SLOTS),
-          f"K1 skip_packed: expected {ILS_ROW_SLOTS} rows' loads in flight, none "
-          f"serialized, got {sass[runs]}")
+    runs = ILS_BUILDS["bf16"]
+    check(sass[runs] == (ILS_ROW_SLOTS, 0, ILS_ROW_SLOTS),
+          f"K1 bf16: expected {ILS_ROW_SLOTS} rows' loads in flight, one 16-byte load "
+          f"each, none serialized, got {sass[runs]}")
     return {step: min(t) for step, t in turns.items()}
 
 
 def phase_k1(torch, data, dev):
     """Phase 2. Returns (the SIFT width's codebooks, (max error, kernel ms,
-    plain ms), the visits K1 needs at the SIFT width)."""
+    plain ms), the visits K1 needs at the SIFT width, the f32 build's ms)."""
     from local_search_quantization_torch.ops.icm_kernels import ils_visits_needed
     from local_search_quantization_torch.ops.solver import update_codebooks
     from local_search_quantization_torch.utils.synth import random_codes
@@ -439,9 +453,10 @@ def phase_k1(torch, data, dev):
           + ", ".join(f"{v:.4f}" for v in per_round) + "; by sweep "
           + ", ".join(f"{v:.4f}" for v in per_sweep))
     stages = k1_stages(torch, args)
-    print(f"[{CARD}] K1 SIFT width: the kernel that runs {ms:.3f} ms against the first "
-          f"port's loop {stages['present']:.3f} ms in this run")
-    return C, (max(err, serr), ms, plain), count
+    print(f"[{CARD}] K1 SIFT width: the kernel that runs {ms:.3f} ms against the f32 "
+          f"build (K1's function before its table was rounded) {stages['f32']:.3f} ms "
+          "in this run")
+    return C, (max(err, serr), ms, plain), count, stages["f32"]
 
 
 def compare_sweeps(torch, args, label, time_it):
@@ -750,22 +765,21 @@ def phase_l2(torch, dev, k1_visits):
             print(f"[{CARD}] L2 gather, {label}, {'16 B' if wide else 'one element'} a "
                   f"lane: {r['gbps']:.1f} GB/s ({r['bytes'] / 1e9:.3f} GB in "
                   f"{r['ms']:.4f} ms)")
-    # Table bytes each kernel gathers at its phase-2 shape: m - 1 rows of h
-    # values a visit, icmiter * m visits a round.
-    k1_bytes = K1_N * K1_ROUNDS * ICMITER * M * (M - 1) * H * 4
+    # Table bytes each kernel gathers at its phase-2 shape: m - 1 bf16 rows
+    # of h values a visit, icmiter * m visits a round (K1: rounds of them).
+    k1_bytes = K1_N * K1_ROUNDS * ICMITER * M * (M - 1) * H * 2
     k5_bytes = K1_N * ICMITER * M * (M - 1) * H * 2
     bf16_rate = max(rates[(2 * H, False)], rates[(2 * H, True)])
-    f32_rate = max(rates[(4 * H, False)], rates[(4 * H, True)])
-    k1_needed = k1_visits * (M - 1) * H * 4
-    bounds = {"ils_encode": k1_needed / f32_rate / 1e6,
+    k1_needed = k1_visits * (M - 1) * H * 2
+    bounds = {"ils_encode": k1_needed / bf16_rate / 1e6,
               "icm_sweeps_v2": k5_bytes / bf16_rate / 1e6,
               "icm_sweeps_v1": k5_bytes / bf16_rate / 1e6}
     bounds["icm_sweeps_dissect"] = bounds["icm_sweeps_v2"]
     bounds["l2_gbps"] = bf16_rate
     print(f"[{CARD}] practical bounds from the L2 rate: K1, every visit, "
-          f"{k1_bytes / 1e9:.1f} GB / {f32_rate:.1f} GB/s = "
-          f"{k1_bytes / f32_rate / 1e6:.3f} ms; K1, the {k1_visits} visits it needs, "
-          f"{k1_needed / 1e9:.1f} GB / {f32_rate:.1f} GB/s = {bounds['ils_encode']:.3f} ms; "
+          f"{k1_bytes / 1e9:.1f} GB / {bf16_rate:.1f} GB/s = "
+          f"{k1_bytes / bf16_rate / 1e6:.3f} ms; K1, the {k1_visits} visits it needs, "
+          f"{k1_needed / 1e9:.1f} GB / {bf16_rate:.1f} GB/s = {bounds['ils_encode']:.3f} ms; "
           f"K5 and K6 {k5_bytes / 1e9:.1f} GB / {bf16_rate:.1f} GB/s = "
           f"{bounds['icm_sweeps_v2']:.3f} ms")
     return bounds
@@ -1354,6 +1368,7 @@ def drive_path(torch, demo, data, dev, label, mode, init):
     print(f"path {label}: checks passed (objectives fall OPQ > ChainQ > LSQ, accept "
           "invariant, recall curve, plain-version agreement on 32 queries)")
     info["lsq"] = lsq
+    info["args"], info["cfg"] = args, cfg
     info["base_B"] = ms["B"]
     info["encode_vec_per_s"] = out["encode_vec_per_s"]
     info["base_error"] = ms["base_error"]
@@ -2471,6 +2486,53 @@ def path_a_skip_share(torch, demo, data, dev, info):
     check(same and counts[0] > 0, "path A: the replayed base encode gave other codes")
 
 
+def path_a_f32_encode(torch, demo, data, dev, info, rec_a):
+    """Path A's base encode once more, outside any counted window, through
+    the "f32" build of `ils_encode_step` (K1's function before its table
+    was rounded) in place of K1, from the same seeds; then norms, query and
+    recall as path A. Prints both encodes' mean exact cost and recall. Fails
+    unless K1's mean cost is within 1e-4 relative of the f32 encode's and
+    its recall@10 within 0.015."""
+    from local_search_quantization_torch.ops import icm_kernels
+
+    kernel = icm_kernels.ils_encode_streamed
+
+    def f32(*args, **kw):
+        return icm_kernels.ils_encode_step(*args, step="f32", **kw)
+
+    # ils_encode looks K1's wrapper up by its module name at each call; the
+    # counts below show that the swap took.
+    f32_before = icm_kernels.ils_encode_step.launches["f32"]
+    k1_before = kernel.launches
+    icm_kernels.ils_encode_streamed = f32
+    try:
+        out = demo.run_pipeline_tail(info["args"], info["lsq"], info["cfg"], data[1], data[2],
+                                     data[3], dev)
+    finally:
+        icm_kernels.ils_encode_streamed = kernel
+    f32_launches = icm_kernels.ils_encode_step.launches["f32"] - f32_before
+    check(f32_launches > 0 and kernel.launches == k1_before,
+          f"path A: the f32 re-encode did not go through the f32 build "
+          f"({f32_launches} f32 launches, {kernel.launches - k1_before} K1 launches)")
+    ms = out["milestones"][MAIN["ilsiter_base"]]
+    rec = ms["recall"]
+    rel = (info["base_error"] - ms["base_error"]) / ms["base_error"]
+    print(f"[{CARD}] path A: the 1M base encoded through K1 (bf16 table) and through the "
+          f"f32 build, the same model and seeds: mean exact cost {info['base_error']:.6e} "
+          f"against {ms['base_error']:.6e} ({rel:+.3e} relative); f32 encode "
+          f"{out['encode_s']:.3f} s ({out['encode_vec_per_s']:.0f} vec/s)")
+    print(f"[{CARD}] path A: recall K1 vs f32: " + ", ".join(
+        f"r@{n} {rec_a[n - 1]:.4f} vs {rec[n - 1]:.4f}" for n in (1, 10, 100, 1000)
+        if n <= K))
+    rows = int((ms["B"] != info["base_B"]).any(1).sum())
+    print(f"path A: base rows whose codes differ between the two encodes: {rows}")
+    check(rows > 0, "path A: the f32 encode gave K1's codes on every base row")
+    check(abs(rel) <= 1e-4, f"path A: K1's mean cost {rel:+.3e} relative from the f32 "
+                            "encode's, beyond 1e-4")
+    check(abs(rec_a[9] - rec[9]) <= 0.015,
+          f"path A: K1's recall@10 {rec_a[9]:.4f} against the f32 encode's {rec[9]:.4f}")
+
+
 def phase_main(torch, demo, data, dev):
     """Path A ("auto": K1 and K2), then path B ("fused": K5 and K2) from
     path A's OPQ/ChainQ models. Returns both paths' launches and path A's
@@ -2479,6 +2541,7 @@ def phase_main(torch, demo, data, dev):
     check(launches_a["ils_encode"] > 0 and launches_a["scan_topk"] > 0,
           f"path A: a kernel of the path never launched: {launches_a}")
     path_a_skip_share(torch, demo, data, dev, info)
+    path_a_f32_encode(torch, demo, data, dev, info, rec_a)
     launches_b, _, rec_b = drive_path(torch, demo, data, dev, "B", "fused", info)
     check(launches_b["icm_sweeps_v2"] > 0 and launches_b["scan_topk"] > 0,
           f"path B: a kernel of the path never launched: {launches_b}")
@@ -2516,10 +2579,14 @@ def main() -> int:
         "--synth-d", str(D)]))
     print(f"data: synthetic corpus {[a.shape for a in data]} in "
           f"{time.perf_counter() - t0:.3f} s")
-    C, k1, k1_visits = phase_k1(torch, data, dev)
+    C, k1, k1_visits, k1_f32_ms = phase_k1(torch, data, dev)
     sweeps = phase_sweeps(torch, C, data, dev)
     k7 = phase_k7(torch, C, data, dev)
     practical = phase_l2(torch, dev, k1_visits)
+    print(f"[{CARD}] K1 at n={K1_N}, {K1_ROUNDS} rounds: kernel {k1[1]:.3f} ms, the f32 "
+          f"build {k1_f32_ms:.3f} ms, practical bound {practical['ils_encode']:.3f} ms (the "
+          f"2-byte rows of the visits it needs): K1 at "
+          f"{practical['ils_encode'] / k1[1]:.0%} of it")
     k2, k2_inputs = phase_k2(torch, C, data, dev)
     k3, t0, cap = phase_k3(torch, k2_inputs, practical.pop("l2_gbps"))
     k4 = phase_k4(torch, k2_inputs, t0, cap)

@@ -6,8 +6,8 @@ The PyTorch/CUDA counterpart of demos/demo_lsq.py, in the same order
 (train_opq, train_chainq, train_lsq, encode_chunked, quantize_norms,
 linscan_lsq, eval_recall). `--condition-mode` picks the ICM backend of both
 the LSQ training encodes and the base encode: "auto" (the whole-ILS kernel,
-K1) or "fused" (per-round ICM sweeps, K5), or the "gather"/"matmul" tensor
-paths. Runs on the GPU (the CUDA kernels build at first use) and raises
+K1, on the GPU; "gather" on the CPU) or "fused" (per-round ICM sweeps, K5),
+or the "gather"/"matmul" tensor paths. Runs on the GPU (the CUDA kernels build at first use) and raises
 without one, unless `--device cpu` asks for the CPU, where the kernels'
 plain versions run. Uses SIFT1M from
 ./data/sift/ when present, else the synthetic SIFT-statistics corpus.

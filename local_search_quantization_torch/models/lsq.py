@@ -45,7 +45,7 @@ def train_lsq(X: torch.Tensor, B, R, config: LSQConfig = LSQConfig(), *,
     h = config.h
     ils_kwargs = dict(ilsiter=config.ilsiter, icmiter=config.icmiter,
                       npert=config.npert, randord=config.randord,
-                      condition_mode=resolve_condition_mode(config.condition_mode))
+                      condition_mode=resolve_condition_mode(config.condition_mode, dev))
     solve_kwargs = dict(method=config.codebook_method, ridge=config.ridge,
                         niter=config.lsqr_niter)
 

@@ -55,7 +55,7 @@ def train_lsq_sparse(X: torch.Tensor, B, C_sub_init, R,
     S = config.S if config.S > 0 else d * h
     ils_kwargs = dict(ilsiter=config.ilsiter, icmiter=config.icmiter,
                       npert=config.npert, randord=config.randord,
-                      condition_mode=resolve_condition_mode(config.condition_mode))
+                      condition_mode=resolve_condition_mode(config.condition_mode, dev))
 
     RX = X @ R
     C = pq_full_codebooks(torch.as_tensor(C_sub_init).to(dev, torch.float32), d)

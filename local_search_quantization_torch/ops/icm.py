@@ -10,14 +10,16 @@ Every step is a whole-batch tensor op, as in the JAX package:
 
 Condition modes:
 
-- `"kernel"` (what "auto" picks on every device) runs the whole encode
-  through K1 (`icm_kernels.ils_encode_streamed`): the CUDA kernel for CUDA
-  tensors, its plain PyTorch version for CPU tensors. A shape K1 cannot
-  hold (`icm_kernels.ils_kernel_fits`) takes the "matmul" path instead.
+- `"kernel"` (what "auto" picks for data on a CUDA device) runs the whole
+  encode through K1 (`icm_kernels.ils_encode_streamed`): the CUDA kernel for
+  CUDA tensors, its plain PyTorch version for CPU tensors. A shape K1
+  cannot hold (`icm_kernels.ils_kernel_fits`) takes the "matmul" path
+  instead.
 - `"fused"` runs the ILS rounds here, each round's ICM sweeps through K5
   (`icm_kernels.fused_icm_sweeps`) against bf16 pairwise tables.
-- `"gather"` and `"matmul"` are the round-by-round tensor paths: f32 row
-  gathers, or one masked one-hot product per visit against the tables
+- `"gather"` (what "auto" picks elsewhere, as the JAX package picks it off
+  the accelerator) and `"matmul"` are the round-by-round tensor paths: f32
+  row gathers, or one masked one-hot product per visit against the tables
   rounded to bf16.
 
 Randomness comes from an explicit `torch.Generator`; its draws are made on
@@ -84,7 +86,7 @@ def _condition(unaries_j: torch.Tensor, binaries_to_j: torch.Tensor,
     """Absorb all pairwise terms into the unary of codebook j: [n, h] scores.
 
     unaries_j [n, h]; binaries_to_j [m, h, h] = binaries[:, j]. Summed in
-    the order unary, then k = 0..m-1 with k != j (the K1 kernel's order).
+    the order unary, then k = 0..m-1 with k != j (K6's order).
     """
     acc = unaries_j
     for k in range(B.shape[1]):
@@ -120,7 +122,7 @@ def cost_from_luts(xsq: torch.Tensor, unaries: torch.Tensor,
     """||x||^2 + sum_i unaries[n, i, B_i] + sum_{i<j} binaries[i, j, B_i, B_j].
 
     The unaries are summed in i order, that sum is added to xsq, and then
-    the pairs in (i<j) row-major order, as the K1 kernel does.
+    the pairs in (i<j) row-major order.
     """
     n, m = B.shape
     Bl = B.long()
@@ -135,23 +137,26 @@ def cost_from_luts(xsq: torch.Tensor, unaries: torch.Tensor,
     return total
 
 
-def resolve_condition_mode(mode: str) -> str:
-    """"auto" -> "kernel" on every device; "kernel", "fused", "gather" and
-    "matmul" pass through."""
+def resolve_condition_mode(mode: str, device) -> str:
+    """"auto" -> "kernel" for data on a CUDA device, "gather" elsewhere, as
+    the JAX package resolves it by platform (icm.py:170-173); "kernel",
+    "fused", "gather" and "matmul" pass through. device: where the encode
+    runs (a torch.device or its name)."""
     if mode == "auto":
-        return "kernel"
+        return "kernel" if torch.device(device).type == "cuda" else "gather"
     if mode not in _MODES:
         raise ValueError(f"condition_mode must be auto or one of {_MODES}, "
                          f"got {mode!r}")
     return mode
 
 
-def encode_route(mode: str, m: int, h: int) -> str:
-    """The condition mode `ils_encode` runs for `mode` at shape (m, h):
-    "kernel" becomes "matmul" where K1 cannot hold the shape (icm.py:345-351)."""
+def encode_route(mode: str, m: int, h: int, device) -> str:
+    """The condition mode `ils_encode` runs for `mode` at shape (m, h) on
+    `device`: "kernel" becomes "matmul" where K1 cannot hold the shape
+    (icm.py:345-351)."""
     from local_search_quantization_torch.ops.icm_kernels import ils_kernel_fits
 
-    mode = resolve_condition_mode(mode)
+    mode = resolve_condition_mode(mode, device)
     if mode == "kernel" and not ils_kernel_fits(m, h):
         return "matmul"
     return mode
@@ -196,7 +201,7 @@ def ils_encode(gen: torch.Generator, X: torch.Tensor, B0: torch.Tensor,
                          f"[1, {ilsiter}], got {milestones}")
     dev = X.device
     m, h = C.shape[0], C.shape[1]
-    condition_mode = encode_route(condition_mode, m, h)
+    condition_mode = encode_route(condition_mode, m, h, dev)
     B0 = B0.to(device=dev, dtype=torch.int32).contiguous()
     unaries = get_unaries(X, C)
     binaries = get_binaries(C)
@@ -319,7 +324,7 @@ def encode_chunked(gen: torch.Generator, X, B0, C: torch.Tensor, *,
     milestones = tuple(milestones) if milestones else ()
     dev = C.device
     n = X.shape[0]
-    mode = resolve_condition_mode(condition_mode)
+    mode = resolve_condition_mode(condition_mode, dev)
     outB, outcost = [], []
     out_msB = [[] for _ in milestones]
     out_msc = [[] for _ in milestones]

@@ -3,9 +3,10 @@
 - K1 `ils_encode_streamed`: the whole-ILS encode in one launch. Port of
   `local_search_quantization_tpu.ops.icm_pallas.fused_ils_encode` (kernel
   `_ils_kernel_pp`). The randomness comes in as tensors, as the TPU wrapper
-  streams it (icm_pallas.py:718-726), so the CUDA kernel
-  (`csrc/ils_encode.cu`) and `ils_encode_streamed_reference` compute the
-  same function on the same inputs and can be compared bit for bit.
+  streams it (icm_pallas.py:718-726), and the table is rounded as that
+  wrapper rounds it (bf16 visits, a hi/lo cost), so the CUDA kernel
+  (`csrc/ils_encode.cu`), `ils_encode_streamed_reference` and the TPU
+  kernel compute the same function on the same inputs.
 - K5/K6 `fused_icm_sweeps`: one ILS round's `icmiter` ICM sweeps in one
   launch, against bf16 pairwise tables. Port of `icm_pallas.fused_icm_sweeps`
   (kernels `_icm_kernel_v2`, variant "v2", and `_icm_kernel`, variant "v1");
@@ -18,7 +19,8 @@
 - `icm_sweeps_step`: K5 at one stage of its redesign for this card (the
   first port's visit, the same with its loads hoisted, the kernel that
   runs), so that one run times them side by side; a measurement tool on no
-  path, with K5's plain version. `ils_encode_step` does the same for K1.
+  path, with K5's plain version. `ils_encode_step` times K1 beside the
+  f32 function it had before its table was rounded as the TPU's is.
 - `ils_visits_needed`: the row-visits of K1's encode whose inputs changed,
   the ones the kernel does; it skips the rest, whose argmin is the code the
   row already holds.
@@ -58,26 +60,56 @@ def ils_kernel_fits(m: int, h: int) -> bool:
     return 1 <= m <= 32 and h <= _ILS_MAX_H and _ILS_WARPS * m * h * 4 <= _SMEM_LIMIT
 
 
-def ils_encode_streamed_reference(unaries, binaries, xsq, B0, orders,
-                                  pert_keys, pert_codes, *, icmiter: int,
-                                  milestones=(), with_stats: bool = False):
-    """Plain PyTorch version of the K1 kernel, in the kernel's summation order.
+def split_hi_lo(binaries: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """f32 -> (bf16 hi, bf16 lo): hi = bf16(x), lo = bf16(x - f32(hi)), the
+    split of the TPU kernel's table (`select_pallas._split_hi_lo`). Rounds
+    to nearest even, as JAX's cast does."""
+    hi = binaries.to(torch.bfloat16)
+    return hi, (binaries - hi.float()).to(torch.bfloat16)
 
-    Args:
-      unaries [n, m, h] f32, binaries [m, m, h, h] f32, xsq [n] f32,
-      B0 [n, m] int, orders [rounds, m] int (visit order per round),
-      pert_keys [rounds, n, m] f32, pert_codes [rounds, n, npert] int.
-      milestones: 1-based rounds after which to snapshot the best codes.
 
-    Returns (B [n, m] int32, cost [n] f32, ms_B [n_ms, n, m] int32 | None,
-    ms_cost [n_ms, n] f32 | None, stats [rounds, 2] f32 | None), where
-    stats counts the rows whose proposal was better / equal each round.
+def mrf_cost_hi_lo(xsq, unaries, hi, lo, B) -> torch.Tensor:
+    """K1's in-flight MRF cost, the TPU kernel's `_mrf_cost`
+    (icm_pallas.py:133-166), on the hi/lo split of the table (widened to
+    f32, [m, m, h, h] each):
+
+        (xsq + sum_i u_i) + sum_{j=0}^{m-2} [(sum_{k>j} hi[k, j][B_k, B_j])
+                                            + (sum_{k>j} lo[k, j][B_k, B_j])]
+
+    The unaries are summed in i order, each inner sum in k order from its
+    first term, and the bracketed terms in j order from 0.
     """
+    n, m = B.shape
+    Bl = B.long()
+    u = torch.gather(unaries, 2, Bl[:, :, None])[:, :, 0]
+    s = u[:, 0]
+    for i in range(1, m):
+        s = s + u[:, i]
+    pair = torch.zeros_like(xsq)
+    for j in range(m - 1):
+        sh = hi[j + 1, j][Bl[:, j + 1], Bl[:, j]]
+        sl = lo[j + 1, j][Bl[:, j + 1], Bl[:, j]]
+        for k in range(j + 2, m):
+            sh = sh + hi[k, j][Bl[:, k], Bl[:, j]]
+            sl = sl + lo[k, j][Bl[:, k], Bl[:, j]]
+        pair = pair + (sh + sl)
+    return (xsq + s) + pair
+
+
+def _ils_loop(unaries, xsq, B0, orders, pert_keys, pert_codes, icmiter, scores, cost,
+              milestones=(), need_out=None):
+    """The loop K1 runs, in plain PyTorch: per round, perturb, visit
+    (`scores(cur, j)` -> [n, h], argmin with the lowest index on ties),
+    then accept where `cost(codes)` is strictly lower. Where `need_out`
+    ([rounds, icmiter * m, n] bool) is given, it records the visits whose
+    inputs changed. Returns (B, cost, ms_B, ms_cost, stats) as
+    `ils_encode_streamed_reference`, stats always."""
     n, m, h = unaries.shape
     rounds, npert = orders.shape[0], pert_codes.shape[2]
-    rows = torch.arange(n, device=unaries.device)
+    dev = unaries.device
+    rows = torch.arange(n, device=dev)
     best = B0.long().clone()
-    best_cost = cost_from_luts(xsq, unaries, binaries, best)
+    best_cost = cost(best)
     ms_at = {r - 1: s for s, r in enumerate(milestones)}
     ms_B = [None] * len(milestones)
     ms_cost = [None] * len(milestones)
@@ -89,11 +121,15 @@ def ils_encode_streamed_reference(unaries, binaries, xsq, B0, orders,
             pos = torch.argmin(keys, dim=1)
             keys[rows, pos] = 1e30
             cur[rows, pos] = pert_codes[r, :, p].long()
-        for _ in range(icmiter):
-            for j in orders[r].tolist():
-                scores = _condition(unaries[:, j], binaries[:, j], cur, j)
-                cur[:, j] = torch.argmin(scores, dim=1)
-        newcost = cost_from_luts(xsq, unaries, binaries, cur)
+        need = torch.ones((n, m), dtype=torch.bool, device=dev)
+        for s, j in enumerate(orders[r].tolist() * icmiter):
+            new = torch.argmin(scores(cur, j), dim=1)
+            if need_out is not None:
+                need_out[r, s] = need[:, j]
+                need = need | (new != cur[:, j])[:, None]
+                need[:, j] = False
+            cur[:, j] = new
+        newcost = cost(cur)
         better = newcost < best_cost
         stats[r, 0] = better.sum().item()
         stats[r, 1] = (newcost == best_cost).sum().item()
@@ -104,8 +140,60 @@ def ils_encode_streamed_reference(unaries, binaries, xsq, B0, orders,
             ms_cost[ms_at[r]] = best_cost
     msb = torch.stack(ms_B) if milestones else None
     msc = torch.stack(ms_cost) if milestones else None
-    return (best.int(), best_cost, msb, msc,
-            stats.to(unaries.device) if with_stats else None)
+    return best.int(), best_cost, msb, msc, stats.to(dev)
+
+
+def _k1_functions(unaries, binaries, xsq):
+    """K1's visit scores and cost on the table rounded as the TPU kernel
+    rounds it: (scores(cur, j), cost(B))."""
+    hi, lo = split_hi_lo(binaries)
+    bint = binaries_to_j_stacked(hi).float()
+    hif, lof = hi.float(), lo.float()
+    return (lambda cur, j: _visit_scores(unaries, bint, cur, j),
+            lambda B: mrf_cost_hi_lo(xsq, unaries, hif, lof, B))
+
+
+def ils_encode_streamed_reference(unaries, binaries, xsq, B0, orders,
+                                  pert_keys, pert_codes, *, icmiter: int,
+                                  milestones=(), with_stats: bool = False):
+    """Plain PyTorch version of the K1 kernel: the TPU kernel's function
+    (`fused_ils_encode`), in the CUDA kernel's summation order.
+
+    The table is split once into hi = bf16(binaries) and its bf16 residual
+    lo (`split_hi_lo`). A visit to codebook j scores the candidates c as the
+    sum over k != j, in k order from 0, of hi[k, j][B_k, c] widened exactly
+    to f32, plus the unary (`_visit_scores`; icm_pallas.py:441-451), and
+    takes the lowest c on ties. A round accepts where its cost
+    (`mrf_cost_hi_lo`, the TPU kernel's `_mrf_cost`) is strictly lower;
+    the costs returned are these in-flight costs.
+
+    Args:
+      unaries [n, m, h] f32, binaries [m, m, h, h] f32, xsq [n] f32,
+      B0 [n, m] int, orders [rounds, m] int (visit order per round),
+      pert_keys [rounds, n, m] f32, pert_codes [rounds, n, npert] int.
+      milestones: 1-based rounds after which to snapshot the best codes.
+
+    Returns (B [n, m] int32, cost [n] f32, ms_B [n_ms, n, m] int32 | None,
+    ms_cost [n_ms, n] f32 | None, stats [rounds, 2] f32 | None), where
+    stats counts the rows whose proposal was better / equal each round.
+    """
+    scores, cost = _k1_functions(unaries, binaries, xsq)
+    out = _ils_loop(unaries, xsq, B0, orders, pert_keys, pert_codes, icmiter, scores,
+                    cost, tuple(milestones))
+    return out if with_stats else out[:4] + (None,)
+
+
+def _ils_f32_reference(unaries, binaries, xsq, B0, orders, pert_keys, pert_codes, *,
+                       icmiter: int, milestones=(), with_stats: bool = False):
+    """The oracle of `ils_encode_step`'s "f32" build: K1's loop on the f32
+    table, each visit the unary and then binaries[k, j][B_k] for k != j in k
+    order (`icm._condition`), the cost exact f32 (`cost_from_luts`).
+    Arguments and results as `ils_encode_streamed_reference`."""
+    out = _ils_loop(unaries, xsq, B0, orders, pert_keys, pert_codes, icmiter,
+                    lambda cur, j: _condition(unaries[:, j], binaries[:, j], cur, j),
+                    lambda B: cost_from_luts(xsq, unaries, binaries, B),
+                    tuple(milestones))
+    return out if with_stats else out[:4] + (None,)
 
 
 def ils_visits_needed(unaries, binaries, xsq, B0, orders, pert_keys, pert_codes, *,
@@ -123,38 +211,21 @@ def ils_visits_needed(unaries, binaries, xsq, B0, orders, pert_keys, pert_codes,
     sum is the number of visits K1 does on these inputs.
     """
     n, m, h = unaries.shape
-    rounds, npert = orders.shape[0], pert_codes.shape[2]
-    dev = unaries.device
-    rows = torch.arange(n, device=dev)
-    best = B0.long().clone()
-    best_cost = cost_from_luts(xsq, unaries, binaries, best)
-    out = torch.zeros((rounds, icmiter * m, n), dtype=torch.bool, device=dev)
-    for r in range(rounds):
-        cur = best.clone()
-        keys = pert_keys[r].clone()
-        for p in range(npert):
-            pos = torch.argmin(keys, dim=1)
-            keys[rows, pos] = 1e30
-            cur[rows, pos] = pert_codes[r, :, p].long()
-        need = torch.ones((n, m), dtype=torch.bool, device=dev)
-        for s, j in enumerate(orders[r].tolist() * icmiter):
-            out[r, s] = need[:, j]
-            new = torch.argmin(_condition(unaries[:, j], binaries[:, j], cur, j), dim=1)
-            need = need | (new != cur[:, j])[:, None]
-            need[:, j] = False
-            cur[:, j] = new
-        newcost = cost_from_luts(xsq, unaries, binaries, cur)
-        better = newcost < best_cost
-        best = torch.where(better[:, None], cur, best)
-        best_cost = torch.where(better, newcost, best_cost)
+    out = torch.zeros((orders.shape[0], icmiter * m, n), dtype=torch.bool,
+                      device=unaries.device)
+    scores, cost = _k1_functions(unaries, binaries, xsq)
+    _ils_loop(unaries, xsq, B0, orders, pert_keys, pert_codes, icmiter, scores, cost,
+              need_out=out)
     return out
 
 
 def _ils_launch(entry, lead, what, unaries, binaries, xsq, B0, orders, pert_keys,
-                pert_codes, icmiter, milestones, with_stats):
+                pert_codes, icmiter, milestones, with_stats, split=True):
     """Check K1's inputs on the card and launch `entry` of its library
-    (`lead`: the arguments before the common ones). Returns (the results,
-    as `ils_encode_streamed_reference` gives them, and whether it launched:
+    (`lead`: the arguments before the common ones). `split`: hand the
+    kernel the table's bf16 hi/lo split (`split_hi_lo`, made here once),
+    else the f32 table itself. Returns (the results, as
+    `ils_encode_streamed_reference` gives them, and whether it launched:
     not for n == 0)."""
     dev = unaries.device
     n, m, h = unaries.shape
@@ -194,11 +265,12 @@ def _ils_launch(entry, lead, what, unaries, binaries, xsq, B0, orders, pert_keys
     ms_rounds = torch.tensor([r - 1 for r in milestones], dtype=torch.int32,
                              device=dev)
     if n:
+        table, lo = split_hi_lo(binaries) if split else (binaries, None)
         fn = getattr(lib, entry)
-        fn.argtypes = [_I] * len(lead) + [_P] * 8 + [_I] * 7 + [_P] * 6
+        fn.argtypes = [_I] * len(lead) + [_P] * 9 + [_I] * 7 + [_P] * 6
         fn.restype = _I
         err = fn(*lead,
-                 _ptr(unaries), _ptr(binaries), _ptr(xsq), _ptr(B0), _ptr(orders),
+                 _ptr(unaries), _ptr(table), _ptr(lo), _ptr(xsq), _ptr(B0), _ptr(orders),
                  _ptr(pert_keys), _ptr(pert_codes), _ptr(ms_rounds),
                  n, m, h, rounds, icmiter, npert, n_ms,
                  _ptr(out_b), _ptr(out_cost), _ptr(ms_b), _ptr(ms_cost), _ptr(stats),
@@ -214,7 +286,8 @@ def ils_encode_streamed(unaries, binaries, xsq, B0, orders, pert_keys,
     """K1: the whole ILS encode, one kernel launch for a CUDA tensor.
 
     Same arguments and results as `ils_encode_streamed_reference`, which
-    CPU tensors get. Counts its launches in `ils_encode_streamed.launches`.
+    CPU tensors get; the f32 table is split into bf16 hi/lo here, once.
+    Counts its launches in `ils_encode_streamed.launches`.
     """
     dev = unaries.device
     if dev.type == "cpu":
@@ -232,33 +305,32 @@ def ils_encode_streamed(unaries, binaries, xsq, B0, orders, pert_keys,
 
 ils_encode_streamed.launches = 0
 
-# K1's redesign for this card, stage by stage (csrc/ils_encode.cu, `Step`
-# and the lane map), in the order of `lsq_ils_encode_step`'s `step`.
-ILS_STEPS = ("present", "hoisted", "hoisted_packed", "skip", "skip_packed")
+# The builds of `lsq_ils_encode_step`, in the order of its `step`: "f32" is
+# K1 before its table was rounded (f32 table rows, exact f32 cost), "bf16"
+# the build `ils_encode_streamed` runs at eight candidates a lane.
+ILS_STEPS = ("f32", "bf16")
 
 
 def ils_encode_step(unaries, binaries, xsq, B0, orders, pert_keys, pert_codes, *,
                     icmiter: int, step: str, milestones=(), with_stats: bool = False):
-    """K1 as it stood at one stage of its redesign: "present" is the first
-    port's visit loop (one table row's loads, then its adds, k by k),
-    "hoisted" a visit's rows loaded before its first add, "skip" that with
-    the visits whose inputs did not change skipped; "_packed" loads 16
-    bytes a lane in place of one element ("skip_packed" is the kernel
-    `ils_encode_streamed` runs at these shapes). All give K1's results; a
-    run times them side by side.
+    """K1 as one of two builds, so that one run times them side by side:
+    "bf16" is `ils_encode_streamed`'s kernel and function; "f32" computes
+    the function K1 had before (each visit conditioned on f32 table rows,
+    the unary first; the round accepted on the exact f32 cost), whose plain
+    version is `_ils_f32_reference`. A measurement tool on no path.
 
-    Arguments and results as `ils_encode_streamed`, whose plain version CPU
-    tensors get. On the card it takes eight candidates a lane only:
-    128 < h <= 256 and h % 8 == 0. Counts its launches per step in
-    `ils_encode_step.launches`.
+    Arguments and results as `ils_encode_streamed`; CPU tensors get the
+    step's plain version. On the card it takes eight candidates a lane
+    only: 128 < h <= 256, h % 8 == 0 and, for "f32", a 16-byte aligned
+    table. Counts its launches per step in `ils_encode_step.launches`.
     """
     if step not in ILS_STEPS:
         raise ValueError(f"step must be one of {ILS_STEPS}, got {step!r}")
     dev = unaries.device
     if dev.type == "cpu":
-        return ils_encode_streamed_reference(
-            unaries, binaries, xsq, B0, orders, pert_keys, pert_codes,
-            icmiter=icmiter, milestones=milestones, with_stats=with_stats)
+        plain = _ils_f32_reference if step == "f32" else ils_encode_streamed_reference
+        return plain(unaries, binaries, xsq, B0, orders, pert_keys, pert_codes,
+                     icmiter=icmiter, milestones=milestones, with_stats=with_stats)
     if dev.type != "cuda":
         raise ValueError(f"ils_encode_step: unsupported device {dev}")
     h = unaries.shape[2]
@@ -267,7 +339,7 @@ def ils_encode_step(unaries, binaries, xsq, B0, orders, pert_keys, pert_codes, *
     out, launched = _ils_launch("lsq_ils_encode_step", (ILS_STEPS.index(step),),
                                 f"ils_encode_step {step}", unaries, binaries, xsq, B0,
                                 orders, pert_keys, pert_codes, icmiter, milestones,
-                                with_stats)
+                                with_stats, split=step == "bf16")
     ils_encode_step.launches[step] += launched
     return out
 

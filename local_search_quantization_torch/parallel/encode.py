@@ -41,7 +41,7 @@ def sharded_ils_encode(mesh: Mesh, gen: torch.Generator, X, B0, C: torch.Tensor,
     per-vector accept-if-better guarantee holds either way, but a sharded
     run is NOT bit-comparable to a single-device run from the same
     generator. condition_mode goes through `encode_route`: "auto" is K1 on
-    a CUDA mesh (its plain version on the CPU), "fused" is K5.
+    a CUDA mesh and "gather" on a CPU one, "fused" is K5.
 
     Returns ILSResult whose B and cost are per-shard blocks, like X.
     """
@@ -49,7 +49,7 @@ def sharded_ils_encode(mesh: Mesh, gen: torch.Generator, X, B0, C: torch.Tensor,
     if len(X) != nshards or len(B0) != nshards:
         raise ValueError(f"sharded_ils_encode: X and B0 need {nshards} shards, got "
                          f"{len(X)} and {len(B0)}")
-    mode = encode_route(condition_mode, C.shape[0], C.shape[1])
+    mode = encode_route(condition_mode, C.shape[0], C.shape[1], mesh.devices[0])
     Bs, costs = [], []
     for g, x, b, c in zip(_shard_generators(mesh, gen), X, B0, replicated(mesh, C)):
         res = ils_encode(g, x, b, c, ilsiter=ilsiter, icmiter=icmiter,

@@ -181,9 +181,17 @@ def test_encode_chunked_pads_tail_and_matches_whole_encode_quality():
 
 
 def test_resolve_condition_mode():
-    """Every mode the JAX package accepts passes; an unknown one raises."""
-    assert ticm.resolve_condition_mode("auto") == "kernel"
+    """"auto" is K1 for data on a CUDA device and "gather" on the CPU, as
+    the JAX package maps it by platform; every mode the JAX package accepts
+    passes on either device; an unknown one raises."""
+    assert ticm.resolve_condition_mode("auto", "cuda") == "kernel"
+    assert ticm.resolve_condition_mode("auto", torch.device("cuda", 0)) == "kernel"
+    assert ticm.resolve_condition_mode("auto", "cpu") == "gather"
+    assert ticm.resolve_condition_mode("auto", torch.device("cpu")) == "gather"
+    assert jicm.resolve_condition_mode("auto", "tpu") == "kernel"
+    assert jicm.resolve_condition_mode("auto", "cpu") == "gather"
     for mode in ("kernel", "fused", "gather", "matmul"):
-        assert ticm.resolve_condition_mode(mode) == mode
+        for dev in ("cpu", "cuda"):
+            assert ticm.resolve_condition_mode(mode, dev) == mode
     with pytest.raises(ValueError):
-        ticm.resolve_condition_mode("pallas")
+        ticm.resolve_condition_mode("pallas", "cpu")

@@ -229,9 +229,9 @@ def test_kernel_mode_takes_matmul_where_k1_cannot_hold_the_shape(monkeypatch):
     never calls K1's wrapper; a shape K1 holds still goes to K1."""
     assert not ils_kernel_fits(2, 1025) and not ils_kernel_fits(16, 1024)
     assert ils_kernel_fits(7, 256) and ils_kernel_fits(8, 1024)
-    assert ticm.encode_route("kernel", 2, 1025) == "matmul"
-    assert ticm.encode_route("auto", 7, 256) == "kernel"
-    assert ticm.encode_route("fused", 2, 1025) == "fused"
+    assert ticm.encode_route("kernel", 2, 1025, "cpu") == "matmul"
+    assert ticm.encode_route("auto", 7, 256, "cuda") == "kernel"
+    assert ticm.encode_route("fused", 2, 1025, "cpu") == "fused"
     rng = np.random.default_rng(0)
     X = rng.normal(size=(12, 4)).astype(np.float32)
     C = rng.normal(size=(2, 1025, 4)).astype(np.float32)

@@ -1,4 +1,12 @@
-"""K1's skip of the visits whose inputs did not change, shown exact on the CPU.
+"""K1's function and its skip of the visits whose inputs did not change,
+shown exact on the CPU.
+
+K1's plain version (`ils_encode_streamed_reference`) computes the TPU
+kernel's function: visits conditioned on the pairwise table rounded to
+bf16, rounds accepted on the hi/lo cost. On tables where bf16 rounding
+decides argmins it equals the Pallas kernel (`fused_ils_encode`, interpret
+mode) bit for bit, and K1's function before the rounding (the f32 loop,
+`ils_encode_step`'s "f32" oracle) does not.
 
 K1 (`csrc/ils_encode.cu`) skips a visit to codebook j when no other code of
 the row changed since j's last visit in the round: its scores would be the
@@ -6,8 +14,7 @@ same floats, so its argmin the code j holds. `ils_visits_needed` counts the
 visits K1 does. Here a replay of the plain loop, instrumented at every
 visit, shows that each visit it leaves out would have kept its code, that
 its count is a brute-force count's, and that a replay which skips them ends
-with the Pallas kernel's codes (interpret mode). Inputs are made with numpy
-from a seed.
+with the Pallas kernel's codes. Inputs are made with numpy from a seed.
 """
 
 import jax
@@ -19,13 +26,16 @@ import torch
 from local_search_quantization_tpu.ops import luts as jluts
 from local_search_quantization_tpu.ops.icm_pallas import fused_ils_encode
 from local_search_quantization_torch.ops import luts as tluts
-from local_search_quantization_torch.ops.icm import _condition, cost_from_luts
 from local_search_quantization_torch.ops.icm_kernels import (
     ILS_STEPS,
+    _ils_f32_reference,
+    _k1_functions,
     ils_encode_step,
     ils_encode_streamed_reference,
     ils_visits_needed,
+    split_hi_lo,
 )
+from test_torch_kernels_gpu import bf16_decisive_tables
 
 torch.set_num_threads(1)
 
@@ -52,14 +62,16 @@ def _inputs(n, d, m, h, R, npert, seed, integer=False):
 
 
 def _replay(u, b, xsq, B0, orders, pkeys, pcodes, icmiter, on_visit, keep=None):
-    """The plain loop of `ils_encode_streamed_reference`, calling
-    on_visit(r, s, j, scores, cur) before each visit writes; where `keep`
-    ([rounds, icmiter*m, n] bool) is given, a row writes only where it is
-    True, as K1 does. Returns the final codes and costs."""
+    """The plain loop of `ils_encode_streamed_reference` (visits on the
+    bf16-rounded table, the hi/lo cost), calling on_visit(r, s, j, scores,
+    cur) before each visit writes; where `keep` ([rounds, icmiter*m, n]
+    bool) is given, a row writes only where it is True, as K1 does. Returns
+    the final codes and costs."""
     n, m, _ = u.shape
     rows = torch.arange(n)
+    scores_at, cost = _k1_functions(u, b, xsq)
     best = B0.long().clone()
-    best_cost = cost_from_luts(xsq, u, b, best)
+    best_cost = cost(best)
     for r in range(orders.shape[0]):
         cur = best.clone()
         keys = pkeys[r].clone()
@@ -68,11 +80,11 @@ def _replay(u, b, xsq, B0, orders, pkeys, pcodes, icmiter, on_visit, keep=None):
             keys[rows, pos] = 1e30
             cur[rows, pos] = pcodes[r, :, p].long()
         for s, j in enumerate(orders[r].tolist() * icmiter):
-            scores = _condition(u[:, j], b[:, j], cur, j)
+            scores = scores_at(cur, j)
             on_visit(r, s, j, scores, cur)
             new = torch.argmin(scores, dim=1)
             cur[:, j] = new if keep is None else torch.where(keep[r, s], new, cur[:, j])
-        newcost = cost_from_luts(xsq, u, b, cur)
+        newcost = cost(cur)
         better = newcost < best_cost
         best = torch.where(better[:, None], cur, best)
         best_cost = torch.where(better, newcost, best_cost)
@@ -170,9 +182,9 @@ def test_visits_needed_runs_the_plain_loop_on_the_plain_versions_inputs():
 
 def test_ils_encode_step_routes_cpu_to_plain_version_and_checks_its_step():
     args = _inputs(48, 8, 4, 16, 2, 2, seed=2, integer=True)
-    want = ils_encode_streamed_reference(*args, icmiter=2, milestones=(1,),
-                                         with_stats=True)
+    plain = {"f32": _ils_f32_reference, "bf16": ils_encode_streamed_reference}
     for step in ILS_STEPS:
+        want = plain[step](*args, icmiter=2, milestones=(1,), with_stats=True)
         before = ils_encode_step.launches[step]
         got = ils_encode_step(*args, icmiter=2, step=step, milestones=(1,),
                               with_stats=True)
@@ -180,7 +192,70 @@ def test_ils_encode_step_routes_cpu_to_plain_version_and_checks_its_step():
         for g, w in zip(got, want):
             torch.testing.assert_close(g, w, rtol=0, atol=0)
     with pytest.raises(ValueError, match="step must be one of"):
-        ils_encode_step(*args, icmiter=2, step="interleaved")
+        ils_encode_step(*args, icmiter=2, step="skip_packed")
     meta = [t.to("meta") for t in args]
     with pytest.raises(ValueError, match="unsupported device"):
-        ils_encode_step(*meta, icmiter=2, step="skip")
+        ils_encode_step(*meta, icmiter=2, step="bf16")
+
+
+def _pallas_and_streamed(u, b, xsq, B0, R, icmiter, npert, milestones, seed):
+    """The Pallas kernel's five outputs (interpret mode, tile = n) and the
+    port's inputs for the same draws: (jax outputs, torch args)."""
+    n, m, h = u.shape
+    rng = np.random.default_rng(seed)
+    orders = np.stack([rng.permutation(m) for _ in range(R)]).astype(np.int32)
+    key = jax.random.PRNGKey(seed)
+    jout = fused_ils_encode(key, jnp.asarray(orders), jnp.asarray(u), jnp.asarray(b),
+                            jnp.asarray(xsq), jnp.asarray(B0), ilsiter=R, icmiter=icmiter,
+                            npert=npert, tile=n, interpret=True, milestones=milestones,
+                            with_stats=True)
+    kk, kc = jax.random.split(key)
+    pkeys = jax.random.uniform(kk, (R, n, m), jnp.float32)
+    pcodes = jax.random.randint(kc, (R, n, npert), 0, h, dtype=jnp.int32)
+    return [np.asarray(o) for o in jout], tuple(
+        _t(a) for a in (u, b, xsq, B0, orders, pkeys, pcodes))
+
+
+@pytest.mark.parametrize("n,m,h,R,icmiter,npert", [(64, 4, 16, 3, 2, 2),
+                                                   (48, 5, 24, 2, 3, 3)])
+def test_k1_plain_is_the_pallas_kernel_where_bf16_rounding_decides(n, m, h, R, icmiter,
+                                                                     npert):
+    """On `bf16_decisive_tables` the port's K1 plain version gives the
+    Pallas kernel's codes, costs, milestones and per-round counts bit for
+    bit, and K1's function before its table was rounded (the f32 loop)
+    gives other codes on the same inputs: the fixture tells the two apart."""
+    u, b, xsq, B0 = bf16_decisive_tables(n, m, h, seed=m)
+    hi, lo = split_hi_lo(_t(b))
+    assert torch.equal(hi.float(), _t(b).round()) and torch.equal(
+        lo.float(), _t(b) - _t(b).round())
+    milestones = (1, R)
+    jout, args = _pallas_and_streamed(u, b, xsq, B0, R, icmiter, npert, milestones, seed=7)
+    port = ils_encode_streamed_reference(*args, icmiter=icmiter, milestones=milestones,
+                                         with_stats=True)
+    for got, want in zip(port, jout):
+        np.testing.assert_array_equal(got.numpy(), want)
+    f32 = _ils_f32_reference(*args, icmiter=icmiter, milestones=milestones,
+                             with_stats=True)
+    assert (f32[0].numpy() != jout[0]).any() and (f32[2].numpy() != jout[2]).any()
+    assert (jout[0] != B0).any()
+
+
+def test_k1_plain_costs_track_the_pallas_kernel_on_continuous_data():
+    """Continuous unaries and tables: the port's returned costs within 1e-5
+    relative of the Pallas kernel's (both sum the same bf16-rounded values;
+    the TPU kernel's products may add them in another order), milestones
+    alike, and the codes of at least 99% of the rows identical."""
+    n, d, m, h, R, icmiter, npert = 200, 16, 4, 16, 4, 2, 2
+    rng = np.random.default_rng(1)
+    X = rng.normal(size=(n, d)).astype(np.float32)
+    C = (rng.normal(size=(m, h, d)) * 0.4).astype(np.float32)
+    Xj, Cj = jnp.asarray(X), jnp.asarray(C)
+    u, b = np.asarray(jluts.get_unaries(Xj, Cj)), np.asarray(jluts.get_binaries(Cj))
+    B0 = rng.integers(0, h, size=(n, m), dtype=np.int32)
+    jout, args = _pallas_and_streamed(u, b, (X * X).sum(-1), B0, R, icmiter, npert, (2,),
+                                      seed=3)
+    port = ils_encode_streamed_reference(*args, icmiter=icmiter, milestones=(2,),
+                                         with_stats=True)
+    np.testing.assert_allclose(port[1].numpy(), jout[1], rtol=1e-5)
+    np.testing.assert_allclose(port[3].numpy(), jout[3], rtol=1e-5)
+    assert (port[0].numpy() == jout[0]).all(1).mean() >= 0.99

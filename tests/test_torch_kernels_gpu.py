@@ -15,6 +15,7 @@ from local_search_quantization_torch import _build
 from local_search_quantization_torch.ops import icm, luts
 from local_search_quantization_torch.ops.icm_kernels import (
     DISSECT_VARIANTS,
+    _ils_f32_reference,
     binaries_to_j_stacked,
     fused_icm_sweeps,
     fused_icm_sweeps_reference,
@@ -96,10 +97,12 @@ def test_k1_kernel_matches_plain_version(cuda, shape):
         torch.testing.assert_close(g, w, rtol=0, atol=0)
 
 
-def test_k1_table_off_16_byte_alignment_takes_the_element_loads(cuda):
-    """A contiguous table that starts 4 bytes past a 16-byte boundary cannot
-    be read 16 bytes a lane: K1 takes its one-element lane map and gives
-    the same outputs."""
+def test_k1_wrapper_aligns_an_off_boundary_table_and_the_f32_step_refuses_it(cuda):
+    """A contiguous f32 table that starts 4 bytes past a 16-byte boundary:
+    K1's wrapper splits it into bf16 tables of its own, which are aligned
+    (the kernel's entry refuses any other), so K1 gives the plain version's
+    outputs; the "f32" step, which reads the table as given 16 bytes a
+    lane, refuses it."""
     args = list(_k1_inputs(cuda, 2048, 32, 7, 256, 2, 4, False))
     buf = torch.empty(args[1].numel() + 1, device=cuda)
     args[1] = buf[1:].view(args[1].shape).copy_(args[1])
@@ -109,6 +112,8 @@ def test_k1_table_off_16_byte_alignment_takes_the_element_loads(cuda):
     want = ils_encode_streamed_reference(*args, **kw)
     for g, w in zip(got, want):
         torch.testing.assert_close(g, w, rtol=0, atol=0)
+    with pytest.raises(RuntimeError, match="ils_encode_step f32"):
+        ils_encode_step(*args, step="f32", **kw)
 
 
 def test_k1_skips_visits_and_keeps_every_output_on_a_converging_fixture(cuda):
@@ -129,14 +134,16 @@ def test_k1_skips_visits_and_keeps_every_output_on_a_converging_fixture(cuda):
 @pytest.mark.parametrize("shape", [(4096, 32, 7, 256, 3, 4, True),
                                    (2048, 16, 5, 136, 2, 2, False)])
 def test_k1_stages_give_the_plain_versions_outputs(cuda, shape):
-    """Every stage of K1's redesign (the first port's loop, rows in flight
-    with either lane map, the skip with either) gives the plain version's
-    five outputs, one launch each."""
+    """Both builds of `ils_encode_step` give their plain versions' five
+    outputs, one launch each: "bf16" (the kernel K1 runs) the plain
+    version's, "f32" (K1's function before its table was rounded) its
+    oracle's."""
     n, d, m, h, R, npert, integer = shape
     args = _k1_inputs(cuda, n, d, m, h, R, npert, integer)
     kw = dict(icmiter=4, milestones=(1, R), with_stats=True)
-    want = ils_encode_streamed_reference(*args, **kw)
+    plain = {"f32": _ils_f32_reference, "bf16": ils_encode_streamed_reference}
     for step in ILS_STEPS:
+        want = plain[step](*args, **kw)
         before = ils_encode_step.launches[step]
         got = ils_encode_step(*args, step=step, **kw)
         assert ils_encode_step.launches[step] == before + 1
@@ -144,7 +151,53 @@ def test_k1_stages_give_the_plain_versions_outputs(cuda, shape):
             torch.testing.assert_close(g, w, rtol=0, atol=0)
     with pytest.raises(ValueError):  # eight candidates a lane only
         ils_encode_step(*_k1_inputs(cuda, 64, 8, 3, 64, 1, 1, True), icmiter=1,
-                        step="skip")
+                        step="bf16")
+
+
+def bf16_decisive_tables(n, m, h, seed):
+    """K1's inputs where bf16 rounding decides argmins, as numpy arrays
+    (unaries [n, m, h], binaries [m, m, h, h], xsq [n], B0 [n, m]).
+
+    The table is symmetric (b[k, j] = b[j, k]^T) and each entry is an
+    integer in [130, 133) plus a residual r = q/64, |q| <= 31: bf16 holds
+    the integer exactly and rounds r away (hi = the integer), lo = r is
+    exact in bf16, and every f32 sum of these values is exact in any order.
+    The unaries are integers in [0, 3). With three integer levels the
+    integer parts often tie across candidates, so a visit on the bf16 table
+    takes the lowest tied candidate where the f32 table's residuals pick
+    another.
+    """
+    rng = np.random.default_rng(seed)
+    b = (rng.integers(130, 133, (m, m, h, h))
+         + rng.integers(-31, 32, (m, m, h, h)) / 64).astype(np.float32)
+    # Keep the entries with (k, a) <= (j, c) in (codebook, code) order and
+    # mirror the rest: b[k, j, a, c] = b[j, k, c, a].
+    kh = np.arange(m)[:, None] * h + np.arange(h)[None, :]
+    keep = kh[:, None, :, None] <= kh[None, :, None, :]
+    b = np.where(keep, b, b.transpose(1, 0, 3, 2))
+    u = rng.integers(0, 3, (n, m, h)).astype(np.float32)
+    xsq = rng.integers(1000, 2000, n).astype(np.float32)
+    return u, b, xsq, rng.integers(0, h, (n, m), dtype=np.int32)
+
+
+def test_k1_follows_bf16_rounding_on_the_card(cuda):
+    """On tables where bf16 rounding decides argmins, K1 gives its plain
+    version's five outputs and the "f32" step other codes."""
+    n, m, h, R, npert = 2048, 4, 256, 3, 2
+    u, b, xsq, B0 = bf16_decisive_tables(n, m, h, seed=1)
+    rng = np.random.default_rng(2)
+    args = tuple(torch.as_tensor(a, device=cuda) for a in (
+        u, b, xsq, B0, np.stack([rng.permutation(m) for _ in range(R)]).astype(np.int32),
+        rng.random((R, n, m), dtype=np.float32),
+        rng.integers(0, h, (R, n, npert), dtype=np.int32)))
+    kw = dict(icmiter=2, milestones=(1, R), with_stats=True)
+    got = ils_encode_streamed(*args, **kw)
+    want = ils_encode_streamed_reference(*args, **kw)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
+    f32 = ils_encode_step(*args, step="f32", **kw)
+    torch.testing.assert_close(f32[0], _ils_f32_reference(*args, **kw)[0], rtol=0, atol=0)
+    assert (f32[0] != got[0]).any()
 
 
 def test_k1_dead_rows_never_accept(cuda):

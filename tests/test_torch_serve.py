@@ -33,8 +33,13 @@ torch.set_num_threads(2)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SCRIPTS = os.path.join(REPO, "local_search_quantization_torch", "scripts")
+# Four ILS rounds, where tests/test_serve.py builds with 2: an lsq add encodes
+# at the build's round count, and at 2 rounds the port's add (random stream:
+# torch's, not JAX's) misses test_build_and_serve's row on seed 0 by chance, as
+# JAX's own add does on other seeds
+# (test_lsq_add_at_two_rounds_misses_its_row_by_chance_as_jax_does).
 TINY = ["--dataset", "synthetic", "--synth-d", "16", "--ntrain", "400", "--m", "2",
-        "--h", "16", "--niter", "2", "--ilsiter", "2", "--device", "cpu"]
+        "--h", "16", "--niter", "2", "--ilsiter", "4", "--device", "cpu"]
 # Subprocesses get two torch threads, as this module.
 ENV = dict(os.environ, OMP_NUM_THREADS="2")
 
@@ -201,6 +206,88 @@ def test_build_and_serve(index, method, rng):
     np.testing.assert_allclose(np.asarray(r1["dists"], np.float32), res.dists.numpy(),
                                rtol=1e-5, atol=1e-5)
     assert (np.asarray(r1["ids"]) == res.ids.numpy()).mean() > 0.9  # up to ties
+
+
+def test_lsq_add_at_two_rounds_misses_its_row_by_chance_as_jax_does(tmp_path, rng):
+    """Why TINY builds with 4 ILS rounds where tests/test_serve.py takes 2.
+
+    On the tiny lsq build at 2 rounds, the row test_build_and_serve adds
+    (xnew[0]) is encoded by "auto" = "gather" on the CPU: B0 random, then
+    each round a fresh random start (npert = m = 2) and 4 ICM sweeps,
+    kept where strictly cheaper. From each of the 256 starts and both visit
+    orders the port's sweeps reach the codes JAX's reach, so the two adds
+    differ only by their random streams. One end is a local minimum whose
+    row its own vector does not find in the top 50: over the draws, the
+    add misses its row with probability 3.3% at 2 rounds (computed exactly
+    below) and 0.12% at 4. The port's add misses on seed 0, the seed
+    test_build_and_serve uses, and JAX's own add misses on seed 27, both in
+    that local minimum."""
+    import itertools
+
+    import jax.numpy as jnp
+
+    from local_search_quantization_torch.index import Index
+    from local_search_quantization_torch.ops import icm, luts
+    from local_search_quantization_tpu.index import Index as JaxIndex
+    from local_search_quantization_tpu.ops import icm as jicm
+
+    idx = str(tmp_path / "lsq2")
+    tiny2 = TINY[:TINY.index("--ilsiter") + 1] + ["2"] + TINY[TINY.index("--ilsiter") + 2:]
+    subprocess.run(twin("build_index", "--method", "lsq", "--out", idx, "--nbase", "1500",
+                        *tiny2), cwd=REPO, env=ENV, check=True, capture_output=True,
+                   timeout=600)
+    rng.normal(120, 30, size=(3, 16))  # test_build_and_serve's queries
+    xnew = rng.normal(130, 25, size=(2, 16)).astype(np.float32)
+    C = ckpt.load_model(os.path.join(idx, "model.npz"), device="cpu").C
+    m, h = C.shape[:2]
+    x = torch.as_tensor(xnew[:1])
+    codes = torch.tensor(list(itertools.product(range(h), repeat=m)), dtype=torch.int32)
+    U = luts.get_unaries(x, C).expand(len(codes), -1, -1).contiguous()
+    b = luts.get_binaries(C)
+    cost = icm.cost_from_luts((x * x).sum(-1).expand(len(codes)), U, b, codes).numpy()
+    # Where ICM from each start and visit order ends, the same in both packages.
+    reach = np.zeros(len(codes))
+    for order in itertools.permutations(range(m)):
+        ends = icm.icm_sweeps(codes, U, b, list(order), 4, condition_mode="gather").numpy()
+        jends = jicm.icm_sweeps(jnp.asarray(codes.numpy()), jnp.asarray(U.numpy()),
+                                jnp.asarray(b.numpy()), jnp.asarray(np.int32(order)), 4)
+        np.testing.assert_array_equal(ends, np.asarray(jends))
+        np.add.at(reach, ends @ np.array([h, 1]), 1.0)
+    reach /= reach.sum()
+
+    def found(code) -> bool:
+        # The add's own tail (norms, append) with its encoder's answer fixed.
+        t = Index.load(idx, device="cpu")
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(icm, "ils_encode", lambda *a, **kw: icm.ILSResult(
+                torch.tensor([code], dtype=torch.int32), torch.zeros(1)))
+            assert t.add(xnew[:1]) == [1500]
+        return 1500 in t.search(xnew[:1], k=50)[1][0].tolist()
+
+    # Only codes no dearer than some ICM end can be an add's answer.
+    final = cost <= cost[reach > 0].max()
+    missed = np.zeros(len(codes), bool)
+    missed[final] = [not found(c) for c in codes[final].tolist()]
+    assert missed[reach > 0].any() and not missed[np.argmin(cost)]
+
+    def p_miss(rounds: int) -> float:
+        p = np.full(len(codes), 1.0 / len(codes))  # B0
+        for _ in range(rounds):
+            better = cost[None, :] < cost[:, None]  # [current, end]
+            stay = (reach[None, :] * ~better).sum(1)
+            p = p * stay + (p[:, None] * reach[None, :] * better).sum(0)
+        assert np.isclose(p.sum(), 1.0) and not p[~final].any()
+        return float(p[missed].sum())
+
+    assert 0.01 < p_miss(2) < 0.05 and p_miss(4) < 0.002, (p_miss(2), p_miss(4))
+
+    t = Index.load(idx, device="cpu")
+    assert t.add(xnew) == [1500, 1501] and t.meta["ilsiter"] == 2
+    assert missed[int(t.B[1500] @ np.array([h, 1]))]
+    j = JaxIndex.load(idx)
+    j.meta["add_seq"] = 27
+    j.add(xnew)
+    assert missed[int(np.asarray(j.B)[1500] @ np.array([h, 1]))]
 
 
 def test_serve_binary_frames(index, rng):
