@@ -18,12 +18,10 @@ nothing of JAX. Phases:
    Codes, costs, milestones and counts must be identical: both sum in one
    fixed order and break ties to the lowest index. At the SIFT width: the
    share of visits K1 skips (their inputs unchanged, `ils_visits_needed`),
-   and K1's two builds (`ils_encode_step`: "bf16", the kernel that runs,
-   and "f32", K1's function before its table was rounded, each identical
-   to its plain version), timed twice in turns, with each build's
-   registers (ptxas) and its table-row loads in the SASS (cuobjdump): the
-   build that runs must issue a visit's rows, 8 row slots of one 16-byte
-   load a lane, with no load serialized behind an add;
+   and the registers (ptxas) and table-row loads in the SASS (cuobjdump)
+   of the build `lsq_ils_encode` runs there: a visit must issue its rows,
+   8 row slots of one 16-byte load a lane, with no load serialized behind
+   an add;
 2b. K5 and K6 (the per-round ICM sweeps kernels, variants "v2" and "v1")
    against their plain versions on the same codes: an integer fixture
    (n=8192), three other lane maps (m=5 at h=40, no multiple of 32; h=300,
@@ -85,10 +83,7 @@ nothing of JAX. Phases:
    k=1000 ADC query (K2) and recall; then, outside the counted window, the
    base encode once more on the same inputs with each K1 call's needed
    visits counted (the share K1 skips over path A's base encode; codes
-   identical to path A's), and once through the "f32" build of
-   `ils_encode_step` with norms, query and recall: both encodes' mean exact
-   cost and recall@1/10/100/1000 (K1's mean cost within 1e-4 relative of
-   the f32 encode's, recall@10 within 0.015);
+   identical to path A's);
 4b. main path B: LSQ trained again from path A's OPQ/ChainQ result with
    condition_mode "fused" (K5 in every ILS round), the base encoded with
    "fused", then norms, query and recall as in path A.
@@ -177,6 +172,41 @@ nothing of JAX. Phases:
    `search(mesh=)` in process, bit for bit, its own counts show K2; and
    `--mesh N+1` exits nonzero before "ready". The shards share the card and
    run one after another: no multi-GPU number is taken.
+5. the fault audit, its two parts started together (seconds printed):
+5a. every kernel: the cases of
+    `local_search_quantization_torch/utils/kernel_cases.py` (every C entry
+    point in csrc/ that launches a kernel, at the edge shapes of phases
+    2-3c, small) in subprocesses on the card: under
+    each compute-sanitizer tool (memcheck without leak checks, racecheck,
+    initcheck, synccheck; PYTORCH_NO_CUDA_MEMORY_CACHING=1 so that every
+    tensor is an allocation of its own; reports filtered to the port's
+    kernels by name), each of which must print "ERROR SUMMARY: 0 errors",
+    exit 0 and the cases' pass line; and once without the sanitizer under
+    every fill of the module (the allocator's free memory and a 4 KiB tail
+    behind every input filled with 0x00, then with 0xFF bytes, the tails
+    unchanged after each case; deterministic mode with every `torch.empty`
+    filled with NaN or the largest integer), every output the plain
+    version's. Prints each tool's seconds and the launches it checked. A
+    toolkit without compute-sanitizer fails the run; a sanitizer that
+    refuses the card ("Device not supported") is printed as such, with the
+    tool's seconds and 0 launches checked;
+5b. determinism: a reduced path A (20k train, 100k base, 100 queries,
+    niter=2, LSQ-4: OPQ -> ChainQ -> LSQ "auto" (K1), the base encode,
+    norms, the k=1000 query (K2)) and path C's `search` on that model's
+    `Index` (default, "sorted", "unsorted", "key", bf16, refine and
+    nprobe=8), each run in a fresh process (`chip_smoke.py --replay`), four
+    processes started together: (a) twice in the default mode, which must
+    agree bit for bit in every output (OPQ rotation, ChainQ and LSQ
+    codebooks, LSQ's first codebook update op by op, training and base
+    codes, costs, norm codes, every route's ids and distances); (b) in
+    deterministic mode (CUBLAS_WORKSPACE_CONFIG=:4096:8 before CUDA
+    starts, `torch.use_deterministic_algorithms(True)`,
+    `fill_uninitialized_memory`), which must raise nothing; and (c) in the
+    default mode with (b)'s cuBLAS workspace setting alone. (b) must equal
+    (c) bit for bit: a difference there would come from deterministic mode
+    or a read of unwritten memory. The outputs where (b) differs from (a)
+    are printed, in pipeline order: they come from the cuBLAS workspace
+    setting alone. Prints the phase's seconds.
 
 Prints the kernels' JSON line and then, last, the device line. Any failed
 check exits non-zero before those lines are printed. Every time is printed
@@ -187,6 +217,7 @@ outputs written once) at its memory rate, from the run's shapes.
 
 from __future__ import annotations
 
+import argparse
 import json
 import os
 import subprocess
@@ -194,6 +225,7 @@ import sys
 import tempfile
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
@@ -304,6 +336,65 @@ def phase_environment(torch, _build):
     return card
 
 
+SANITIZE_TIMEOUT_S = 600
+
+
+def phase_sanitize(alongside):
+    """Phase 5a: the kernel cases under each compute-sanitizer tool and
+    under every fill, in subprocesses started together; `alongside()` runs
+    in this process meanwhile. Fails unless each tool gives "ERROR SUMMARY:
+    0 errors", exit code 0 and the cases' pass line, or refuses the card,
+    and unless every fill passes."""
+    from local_search_quantization_torch import _build
+    from local_search_quantization_torch.utils import kernel_cases as kc
+
+    san = _build.sanitizer()
+    check(san is not None,
+          "compute-sanitizer not found in " + ", ".join(_build.sanitizer_paths()))
+    version = subprocess.run([san, "--version"], capture_output=True, text=True,
+                             timeout=60).stdout.strip().splitlines()
+    print(f"sanitize: {san} ({version[-1] if version else 'no version'}), "
+          f"{len(kc.CASES)} kernel cases")
+    t0 = time.perf_counter()
+    fills = ",".join(kc.FILLS)
+    with tempfile.TemporaryFile("w+") as log:
+        proc = subprocess.Popen([sys.executable, "-m", kc.__name__, "--device", "cuda",
+                                 "--fill", fills], cwd=ROOT, stdout=log,
+                                stderr=subprocess.STDOUT, text=True)
+        try:
+            with ThreadPoolExecutor(len(kc.SANITIZER_TOOLS)) as pool:
+                runs = pool.map(lambda tool: kc.sanitize(tool, timeout=SANITIZE_TIMEOUT_S),
+                                kc.SANITIZER_TOOLS)
+                alongside()
+                results = list(runs)
+            proc.wait(timeout=SANITIZE_TIMEOUT_S)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        log.seek(0)
+        lines = log.read().splitlines()
+    passed = [line for line in lines if line.startswith("kernel_cases: all")]
+    if proc.returncode != 0 or not passed:
+        print("\n".join(lines[-30:]))
+        fail(f"sanitize: the kernel cases failed under a fill ({fills})")
+    print(f"[{CARD}] sanitize: without the sanitizer, fills {fills}: {passed[0]}")
+    for res in results:
+        tool = res["tool"]
+        if res["ok"]:
+            print(f"[{CARD}] sanitize {tool}: ERROR SUMMARY: {res['errors']} errors, "
+                  f"{res['launches']} launches checked, {res['seconds']:.3f} s")
+        elif res["refused"]:
+            print(f"[{CARD}] sanitize {tool}: compute-sanitizer refuses this card "
+                  f"(\"{res['refused']}\"): nothing checked, 0 launches, "
+                  f"{res['seconds']:.3f} s")
+        else:
+            print(res["tail"])
+            fail(f"sanitize {tool}: exit {res['rc']}, {res['errors']} errors")
+    print(f"[{CARD}] sanitize: the fills and the tools alongside phase 5b, "
+          f"{time.perf_counter() - t0:.3f} s in all")
+
+
 def k1_args(torch, X, C, B0, rounds, npert, seed):
     from local_search_quantization_torch.ops.luts import get_binaries, get_unaries
 
@@ -344,76 +435,39 @@ def compare_k1(torch, args, label, time_it):
 
 
 # An instantiation of csrc/ils_encode.cu's kernel template in a mangled
-# name: <CPL, BF16, PACKED>.
-ILS_KERNEL = r"ils_kernelILi(\d+)ELb([01])ELb([01])EE"
-# `ils_encode_step`'s builds as (BF16, PACKED) at 8 candidates a lane, and
-# the table loads a row takes a lane in each: "bf16" is the build
-# lsq_ils_encode runs at h=256, one 16-byte load a row; "f32" K1's function
-# before its table was rounded, two.
-ILS_BUILDS = {"f32": (0, 1), "bf16": (1, 1)}
-ILS_LOADS_PER_ROW = {"f32": 2, "bf16": 1}
-ILS_ROW_SLOTS = 8  # RowsInFlight at 8 candidates a lane, either build
+# name: <CPL, PACKED>.
+ILS_KERNEL = r"ils_kernelILi(\d+)ELb([01])EE"
+# The build lsq_ils_encode runs at h=256: 8 candidates a lane, packed (one
+# 16-byte load a row), 8 row slots (RowsInFlight).
+ILS_RUNS = (8, 1)
+ILS_ROW_SLOTS = 8
 
 
-def k1_stages(torch, args):
-    """K1's two builds (`ils_encode_step`) on the SIFT-width inputs: "bf16"
-    (the kernel that runs) against the plain version and "f32" against its
-    oracle, every output identical; each build timed twice in turns, its
-    registers and its table-row loads in the SASS. Fails if the build that
-    runs shows a load serialized behind an add, or other than one 16-byte
-    load a row in each of its 8 row slots. Returns {step: ms}."""
-    from local_search_quantization_torch.ops import icm_kernels as ik
+def k1_sass():
+    """Registers (ptxas) and table-row loads in the SASS (cuobjdump) of the
+    build `lsq_ils_encode` runs at h=256. Fails unless a visit issues its
+    8 row slots, one 16-byte load a row, with none serialized behind an
+    add."""
+    def key(groups):
+        got = (int(groups[0]), int(groups[1]))
+        return got if got == ILS_RUNS else None
 
-    kw = dict(icmiter=ICMITER, milestones=(2, args[4].shape[0]), with_stats=True)
-    plain = {"f32": ik._ils_f32_reference, "bf16": ik.ils_encode_streamed_reference}
-    codes = {}
-    for step in ik.ILS_STEPS:
-        want = plain[step](*args, **kw)
-        got = ik.ils_encode_step(*args, step=step, **kw)
-        torch.cuda.synchronize()
-        same = all(torch.equal(g, w) for g, w in zip(got, want))
-        codes[step] = got[0]
-        print(f"K1 build {step!r} SIFT width: all outputs identical to its plain version: "
-              f"{same}")
-        check(same, f"K1 build {step}: outputs differ from its plain version")
-    rows = int((codes["f32"] != codes["bf16"]).any(1).sum())
-    print(f"K1 SIFT width: rows whose codes differ between the bf16 and f32 builds: {rows} "
-          f"of {K1_N}")
-    turns = {step: [] for step in ik.ILS_STEPS}
-    for step in ik.ILS_STEPS + ik.ILS_STEPS[::-1]:
-        turns[step].append(cuda_ms(torch, lambda step=step: ik.ils_encode_step(
-            *args, icmiter=ICMITER, step=step), 3))
-    regs = ptxas_registers("ils_encode", ILS_KERNEL,
-                           lambda g: (int(g[1]), int(g[2])) if g[0] == "8" else None)
-    sass = sass_table_loads("ils_encode", ILS_KERNEL,
-                            lambda g: (int(g[1]), int(g[2])) if g[0] == "8" else None,
-                            lambda key, ins: "CONSTANT" in ins
-                            and (".128" in ins) == bool(key[1]))
-    print(f"[{CARD}] K1's builds at n={K1_N}, {K1_ROUNDS} rounds, icmiter={ICMITER}, "
-          f"npert={NPERT} (8 candidates a lane; each timed twice in turns; table-row "
-          "loads in the SASS, 16 B a lane = 2 loads a row for f32, 1 for bf16; "
-          "serialized: a register of the load is read before the next table load "
-          "issues; rows in flight: the longest run of row loads with none serialized): "
-          + "; ".join(
-              f"{step} {turns[step][0]:.3f} / {turns[step][1]:.3f} ms, "
-              f"{regs.get(key, '?')} registers, {sass[key][0]} loads "
-              f"({sass[key][1]} serialized, {sass[key][2] / ILS_LOADS_PER_ROW[step]:g} rows "
-              "in flight)" for step, key in ILS_BUILDS.items() if key in sass))
-    for step, key in ILS_BUILDS.items():
-        check(key in sass and sass[key][0] > 0,
-              f"K1 {step}: its build or its table loads are missing from the SASS: {sass}")
-    # The build that runs: a lane's share of a row is one 16-byte load, and
-    # all 8 row slots (m - 1 = 6 rows at m=7) issue before the first add.
-    runs = ILS_BUILDS["bf16"]
-    check(sass[runs] == (ILS_ROW_SLOTS, 0, ILS_ROW_SLOTS),
-          f"K1 bf16: expected {ILS_ROW_SLOTS} rows' loads in flight, one 16-byte load "
-          f"each, none serialized, got {sass[runs]}")
-    return {step: min(t) for step, t in turns.items()}
+    regs = ptxas_registers("ils_encode", ILS_KERNEL, key)
+    sass = sass_table_loads("ils_encode", ILS_KERNEL, key,
+                            lambda k, ins: "CONSTANT" in ins and ".128" in ins)
+    got = sass.get(ILS_RUNS)
+    print(f"[{CARD}] K1's build at h=256 (8 candidates a lane, packed): "
+          f"{regs.get(ILS_RUNS, '?')} registers, table-row loads in the SASS {got} (loads, "
+          "serialized: a register of the load read before the next table load issues, "
+          "rows in flight: the longest run of row loads with none serialized)")
+    check(got == (ILS_ROW_SLOTS, 0, ILS_ROW_SLOTS),
+          f"K1: expected {ILS_ROW_SLOTS} rows' loads in flight, one 16-byte load each, "
+          f"none serialized, got {got}")
 
 
 def phase_k1(torch, data, dev):
     """Phase 2. Returns (the SIFT width's codebooks, (max error, kernel ms,
-    plain ms), the visits K1 needs at the SIFT width, the f32 build's ms)."""
+    plain ms), the visits K1 needs at the SIFT width)."""
     from local_search_quantization_torch.ops.icm_kernels import ils_visits_needed
     from local_search_quantization_torch.ops.solver import update_codebooks
     from local_search_quantization_torch.utils.synth import random_codes
@@ -452,11 +506,8 @@ def phase_k1(torch, data, dev):
           f"skipped {1 - count / (K1_N * K1_ROUNDS * ICMITER * M):.4f}; needed by round "
           + ", ".join(f"{v:.4f}" for v in per_round) + "; by sweep "
           + ", ".join(f"{v:.4f}" for v in per_sweep))
-    stages = k1_stages(torch, args)
-    print(f"[{CARD}] K1 SIFT width: the kernel that runs {ms:.3f} ms against the f32 "
-          f"build (K1's function before its table was rounded) {stages['f32']:.3f} ms "
-          "in this run")
-    return C, (max(err, serr), ms, plain), count, stages["f32"]
+    k1_sass()
+    return C, (max(err, serr), ms, plain), count
 
 
 def compare_sweeps(torch, args, label, time_it):
@@ -2486,53 +2537,6 @@ def path_a_skip_share(torch, demo, data, dev, info):
     check(same and counts[0] > 0, "path A: the replayed base encode gave other codes")
 
 
-def path_a_f32_encode(torch, demo, data, dev, info, rec_a):
-    """Path A's base encode once more, outside any counted window, through
-    the "f32" build of `ils_encode_step` (K1's function before its table
-    was rounded) in place of K1, from the same seeds; then norms, query and
-    recall as path A. Prints both encodes' mean exact cost and recall. Fails
-    unless K1's mean cost is within 1e-4 relative of the f32 encode's and
-    its recall@10 within 0.015."""
-    from local_search_quantization_torch.ops import icm_kernels
-
-    kernel = icm_kernels.ils_encode_streamed
-
-    def f32(*args, **kw):
-        return icm_kernels.ils_encode_step(*args, step="f32", **kw)
-
-    # ils_encode looks K1's wrapper up by its module name at each call; the
-    # counts below show that the swap took.
-    f32_before = icm_kernels.ils_encode_step.launches["f32"]
-    k1_before = kernel.launches
-    icm_kernels.ils_encode_streamed = f32
-    try:
-        out = demo.run_pipeline_tail(info["args"], info["lsq"], info["cfg"], data[1], data[2],
-                                     data[3], dev)
-    finally:
-        icm_kernels.ils_encode_streamed = kernel
-    f32_launches = icm_kernels.ils_encode_step.launches["f32"] - f32_before
-    check(f32_launches > 0 and kernel.launches == k1_before,
-          f"path A: the f32 re-encode did not go through the f32 build "
-          f"({f32_launches} f32 launches, {kernel.launches - k1_before} K1 launches)")
-    ms = out["milestones"][MAIN["ilsiter_base"]]
-    rec = ms["recall"]
-    rel = (info["base_error"] - ms["base_error"]) / ms["base_error"]
-    print(f"[{CARD}] path A: the 1M base encoded through K1 (bf16 table) and through the "
-          f"f32 build, the same model and seeds: mean exact cost {info['base_error']:.6e} "
-          f"against {ms['base_error']:.6e} ({rel:+.3e} relative); f32 encode "
-          f"{out['encode_s']:.3f} s ({out['encode_vec_per_s']:.0f} vec/s)")
-    print(f"[{CARD}] path A: recall K1 vs f32: " + ", ".join(
-        f"r@{n} {rec_a[n - 1]:.4f} vs {rec[n - 1]:.4f}" for n in (1, 10, 100, 1000)
-        if n <= K))
-    rows = int((ms["B"] != info["base_B"]).any(1).sum())
-    print(f"path A: base rows whose codes differ between the two encodes: {rows}")
-    check(rows > 0, "path A: the f32 encode gave K1's codes on every base row")
-    check(abs(rel) <= 1e-4, f"path A: K1's mean cost {rel:+.3e} relative from the f32 "
-                            "encode's, beyond 1e-4")
-    check(abs(rec_a[9] - rec[9]) <= 0.015,
-          f"path A: K1's recall@10 {rec_a[9]:.4f} against the f32 encode's {rec[9]:.4f}")
-
-
 def phase_main(torch, demo, data, dev):
     """Path A ("auto": K1 and K2), then path B ("fused": K5 and K2) from
     path A's OPQ/ChainQ models. Returns both paths' launches and path A's
@@ -2541,7 +2545,6 @@ def phase_main(torch, demo, data, dev):
     check(launches_a["ils_encode"] > 0 and launches_a["scan_topk"] > 0,
           f"path A: a kernel of the path never launched: {launches_a}")
     path_a_skip_share(torch, demo, data, dev, info)
-    path_a_f32_encode(torch, demo, data, dev, info, rec_a)
     launches_b, _, rec_b = drive_path(torch, demo, data, dev, "B", "fused", info)
     check(launches_b["icm_sweeps_v2"] > 0 and launches_b["scan_topk"] > 0,
           f"path B: a kernel of the path never launched: {launches_b}")
@@ -2549,6 +2552,141 @@ def phase_main(torch, demo, data, dev):
     print("recall A (auto) vs B (fused): " + ", ".join(
         f"r@{n} {rec_a[n - 1]:.4f} vs {rec_b[n - 1]:.4f}" for n in (1, 10, 100, 1000)))
     return (launches_a, launches_b), {"info": info, "lsq": info["lsq"], "recall": rec_a}
+
+
+# The determinism phase's reduced path A, and its index's partition.
+REPLAY = dict(ntrain=20_000, nbase=100_000, nquery=100, niter=2, ilsiter_base=4)
+REPLAY_NLIST = 256
+REPLAY_TIMEOUT_S = 600
+REPLAY_ROUTES = (("default", {}, {}),
+                 ("sorted", {"LSQ_TPU_SELECT_VARIANT": "sorted"}, {}),
+                 ("unsorted", {"LSQ_TPU_SELECT_VARIANT": "unsorted"}, {}),
+                 ("key", {"LSQ_TPU_SELECT_VARIANT": "key"}, {}),
+                 ("bf16", {}, {"precision": "bf16"}),
+                 ("refine", {}, {"precision": "bf16", "refine": 10, "k": 100}),
+                 ("nprobe8", {}, {"nprobe": 8}))
+
+
+def replay(torch, demo, out_path: str, deterministic: bool) -> None:
+    """The determinism phase's pipeline in this process: the reduced path A
+    and path C's routes on its model's index; every output to `out_path`
+    (npz, in pipeline order)."""
+    from local_search_quantization_torch.index import Index
+    from local_search_quantization_torch.ops import norms, solver
+    from local_search_quantization_torch.utils.config import LSQConfig
+
+    if deterministic:
+        import torch.utils.deterministic
+
+        torch.use_deterministic_algorithms(True)
+        torch.utils.deterministic.fill_uninitialized_memory = True
+    dev = torch.device("cuda")
+    args = demo.parse_args([
+        "--dataset", "synthetic", "--ntrain", str(REPLAY["ntrain"]),
+        "--nbase", str(REPLAY["nbase"]), "--nquery", str(REPLAY["nquery"]),
+        "--m", str(M), "--h", str(H), "--niter", str(REPLAY["niter"]),
+        "--ilsiter-base", str(REPLAY["ilsiter_base"]), "--knn", str(K),
+        "--synth-d", str(D), "--device", "cuda", "--condition-mode", "auto"])
+    x_train, x_base, x_query, gt = demo.load_data(args)
+    cfg = LSQConfig(m=M, h=H, niter=args.niter, seed=args.seed, condition_mode="auto")
+    lsq, info = demo.train(args, cfg, x_train, dev)
+    tail = demo.run_pipeline_tail(args, lsq, cfg, x_base, x_query, gt, dev)
+    ms = tail["milestones"][REPLAY["ilsiter_base"]]
+    bnorm = norms.quantize_norms(ms["B"], lsq.C, lsq.cbnorms)
+    opq, chain = info["opq"], info["chain"]
+    # LSQ's first codebook update step by step (`solver._solve_cholesky` on
+    # ChainQ's codes), so that a difference names its op.
+    XR = torch.as_tensor(x_train, device=dev) @ chain.R
+    G, AtX = solver.code_gram(chain.B, XR, H)
+    lam = 1e-4 * torch.diagonal(G).sum() / G.shape[0]
+    L = torch.linalg.cholesky(G + lam * torch.eye(G.shape[0], device=dev))
+    out = {"opq_R": opq.R, "opq_C": opq.C_sub, "opq_B": opq.B, "chainq_R": chain.R,
+           "chainq_C": chain.C, "chainq_B": chain.B, "lsq0_XR": XR, "lsq0_code_gram": G,
+           "lsq0_AtX": AtX, "lsq0_cholesky": L, "lsq0_cholesky_solve": torch.cholesky_solve(AtX, L),
+           "lsq_C": lsq.C, "lsq_B": lsq.B,
+           "lsq_cbnorms": lsq.cbnorms, "lsq_B_norms": lsq.B_norms, "base_B": ms["B"],
+           "base_cost": ms["cost"], "base_norm_codes": bnorm, "A_ids": ms["ids"],
+           "A_dists": ms["dists"]}
+    idx = Index("lsq", lsq, ms["B"], bnorm=bnorm, device=dev,
+                meta={"m": M, "h": H, "d": D, "n": REPLAY["nbase"]})
+    idx.attach_refine(x_base, kind="sq8")
+    idx.build_ivf(nlist=REPLAY_NLIST)
+    Q = torch.as_tensor(x_query, device=dev)
+    for label, env, kw in REPLAY_ROUTES:
+        with Env(**env):
+            res = idx.search(Q, **{"k": K, **kw})
+        out[f"C_{label}_ids"], out[f"C_{label}_dists"] = res.ids, res.dists
+    np.savez(out_path, **{name: np.ascontiguousarray(v.cpu().numpy())
+                          for name, v in out.items()})
+    print(f"replay: {len(out)} outputs written (deterministic={deterministic})")
+
+
+def bit_differences(x, y, keys) -> dict:
+    """{key: elements that differ in any bit} over the arrays x[key] and
+    y[key] that are not identical ("shape/dtype" where those differ)."""
+    out = {}
+    for key in keys:
+        a, b = np.ascontiguousarray(x[key]), np.ascontiguousarray(y[key])
+        if a.dtype != b.dtype or a.shape != b.shape:
+            out[key] = "shape/dtype"
+        elif a.tobytes() != b.tobytes():
+            ne = a.reshape(-1).view(np.uint8) != b.reshape(-1).view(np.uint8)
+            out[key] = int(ne.reshape(a.size, -1).any(-1).sum())
+    return out
+
+
+def phase_determinism(tmp: str) -> None:
+    """Phase 5b: the reduced path A + C in four fresh processes started
+    together, (a) twice in the default mode, (b) in deterministic mode, (c)
+    in the default mode with (b)'s cuBLAS workspace setting. Fails unless
+    the two (a) agree bit for bit in every output, (b) raises nothing and
+    (b) equals (c)."""
+    t0 = time.perf_counter()
+    workspace = {"CUBLAS_WORKSPACE_CONFIG": ":4096:8"}
+    runs = {"a1": ({}, False), "a2": ({}, False), "b": (workspace, True), "c": (workspace, False)}
+    procs, logs = {}, {}
+    try:
+        for name, (extra, det) in runs.items():
+            env = {k: v for k, v in os.environ.items() if k != "CUBLAS_WORKSPACE_CONFIG"}
+            logs[name] = open(os.path.join(tmp, f"replay_{name}.log"), "w+")
+            procs[name] = subprocess.Popen(
+                [sys.executable, os.path.join(ROOT, "chip_smoke.py"), "--replay",
+                 os.path.join(tmp, f"replay_{name}.npz"), *(["--deterministic"] if det else [])],
+                cwd=ROOT, env={**env, **extra}, stdout=logs[name], stderr=subprocess.STDOUT,
+                text=True)
+        for name, proc in procs.items():
+            proc.wait(timeout=REPLAY_TIMEOUT_S)
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    for name, proc in procs.items():
+        logs[name].seek(0)
+        tail = logs[name].read().splitlines()[-30:]
+        logs[name].close()
+        if proc.returncode != 0:
+            print("\n".join(tail))
+            fail(f"determinism: replay {name} ({'deterministic' if runs[name][1] else 'default'} "
+                 f"mode) exited {proc.returncode}")
+    got = {name: np.load(os.path.join(tmp, f"replay_{name}.npz")) for name in runs}
+    keys = list(got["a1"].files)
+
+    def differ(x, y):
+        return bit_differences(got[x], got[y], keys)
+
+    twice, det_vs_ws, det_vs_default = differ("a1", "a2"), differ("b", "c"), differ("a1", "b")
+    print(f"[{CARD}] determinism: reduced path A ({REPLAY}) + path C's routes "
+          f"({', '.join(r[0] for r in REPLAY_ROUTES)}), {len(keys)} outputs, 4 processes in "
+          f"{time.perf_counter() - t0:.3f} s")
+    print(f"determinism: default mode twice identical bit for bit: {not twice} {twice or ''}")
+    print(f"determinism: deterministic mode raised nothing; identical to the default mode "
+          f"with its cuBLAS workspace setting alone: {not det_vs_ws} {det_vs_ws or ''}")
+    print(f"determinism: outputs where deterministic mode differs from the default mode, "
+          f"in pipeline order (cuBLAS workspace setting alone): {det_vs_default or 'none'}")
+    check(not twice, f"determinism: two default-mode runs differ in {twice}")
+    check(not det_vs_ws, f"determinism: deterministic mode differs from the cuBLAS "
+                         f"workspace setting alone in {det_vs_ws}")
 
 
 def main() -> int:
@@ -2561,12 +2699,22 @@ def main() -> int:
         fail("torch is not installed", 2)
     if not torch.cuda.is_available():
         fail("no CUDA device: this script measures the port on a GPU", 2)
+    ap = argparse.ArgumentParser(description="Smoke run of the port on one GPU.")
+    ap.add_argument("--replay", metavar="OUT.npz",
+                    help="only the determinism phase's pipeline, its outputs to OUT.npz")
+    ap.add_argument("--deterministic", action="store_true",
+                    help="with --replay: PyTorch's deterministic mode, empty tensors filled")
+    cli = ap.parse_args()
     sys.path[:0] = [ROOT, os.path.join(ROOT, "demos")]
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     from local_search_quantization_torch import _build
 
     import demo_lsq_torch as demo
+
+    if cli.replay:
+        replay(torch, demo, cli.replay, cli.deterministic)
+        return 0
 
     global CARD
     t_script = time.perf_counter()
@@ -2579,12 +2727,12 @@ def main() -> int:
         "--synth-d", str(D)]))
     print(f"data: synthetic corpus {[a.shape for a in data]} in "
           f"{time.perf_counter() - t0:.3f} s")
-    C, k1, k1_visits, k1_f32_ms = phase_k1(torch, data, dev)
+    C, k1, k1_visits = phase_k1(torch, data, dev)
     sweeps = phase_sweeps(torch, C, data, dev)
     k7 = phase_k7(torch, C, data, dev)
     practical = phase_l2(torch, dev, k1_visits)
-    print(f"[{CARD}] K1 at n={K1_N}, {K1_ROUNDS} rounds: kernel {k1[1]:.3f} ms, the f32 "
-          f"build {k1_f32_ms:.3f} ms, practical bound {practical['ils_encode']:.3f} ms (the "
+    print(f"[{CARD}] K1 at n={K1_N}, {K1_ROUNDS} rounds: kernel {k1[1]:.3f} ms, "
+          f"practical bound {practical['ils_encode']:.3f} ms (the "
           f"2-byte rows of the visits it needs): K1 at "
           f"{practical['ils_encode'] / k1[1]:.0%} of it")
     k2, k2_inputs = phase_k2(torch, C, data, dev)
@@ -2598,7 +2746,8 @@ def main() -> int:
         paths += [phase_cli(torch, data, dev, recall_c, tmp),
                   phase_family(torch, demo, data, dev, path_a),
                   phase_mesh(torch, data, dev, path_a, for_g, tmp)]
-    del for_g
+        del for_g
+        phase_sanitize(alongside=lambda: phase_determinism(tmp))
     # Each kernel's count summed over the paths that run it (K6 is on none).
     launches = {name: sum(p[name] for p in paths) for name in COUNTED}
 

@@ -21,8 +21,10 @@ _CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(
     os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
     "build", "torch_kernels")
+# -lineinfo maps SASS to source lines (for compute-sanitizer's reports); it
+# changes no code.
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-lineinfo", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 # Per kernel: nvcc's output (ptxas registers / shared memory / spills) and
@@ -30,9 +32,12 @@ _LIBS: dict[str, ctypes.CDLL] = {}
 BUILD_INFO: dict[str, dict] = {}
 
 
+def _cuda_home() -> str:
+    return os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+
+
 def _nvcc() -> str:
-    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
-    cand = os.path.join(home, "bin", "nvcc")
+    cand = os.path.join(_cuda_home(), "bin", "nvcc")
     if os.path.exists(cand):
         return cand
     found = shutil.which("nvcc")
@@ -40,6 +45,23 @@ def _nvcc() -> str:
         raise RuntimeError("nvcc not found (set CUDA_HOME): the CUDA kernels "
                            "of local_search_quantization_torch cannot be built")
     return found
+
+
+def sanitizer_paths() -> list[str]:
+    """Where `sanitizer` looks for compute-sanitizer, in order: the CUDA
+    toolkit's bin/, its compute-sanitizer/ directory, then PATH."""
+    home = _cuda_home()
+    return [os.path.join(home, "bin", "compute-sanitizer"),
+            os.path.join(home, "compute-sanitizer", "compute-sanitizer"), "PATH"]
+
+
+def sanitizer() -> str | None:
+    """The compute-sanitizer of the CUDA toolkit, found as `_nvcc` finds
+    nvcc (`sanitizer_paths`), or None."""
+    for cand in sanitizer_paths()[:-1]:
+        if os.path.exists(cand):
+            return cand
+    return shutil.which("compute-sanitizer")
 
 
 # Every kernel source in csrc/, by name (l2_probe is the L2 gather probe, a

@@ -41,7 +41,7 @@
 // rows at 6.2 TB/s for 16 bytes a lane (csrc/l2_probe.cu, chip_smoke.py
 // phase 2d): 31.5 GB, 5.1 ms, for the visits K1 needs at n=131072, 4
 // rounds, icmiter=4, m=7. K1 takes 7.2 ms there on an H100, against 8.4 ms
-// for the f32 build's 63 GB of 1 KB rows, which ran at the L2 rate. With
+// when its table was f32 (63 GB of 1 KB rows, at the L2 rate). With
 // rows half as long the gather is no longer all of the time; what else
 // sets it (a visit's argmin and shuffles, or the rows in flight at 24 warps
 // an SM, 80 registers a lane) has not been measured apart.
@@ -80,19 +80,11 @@
 //
 // Chosen not to: issue the next visit's rows before the current argmin
 // finishes. It would take another m-2 rows of registers a lane.
-//
-// BF16 = false keeps the function K1 computed before its table was rounded,
-// as one build (entry point lsq_ils_encode_step, a measurement tool on no
-// path): each visit starts from the unary and adds f32 table rows in k
-// order (two 16-byte loads a lane a row at CPL 8), and the cost is exact
-// f32, xsq + the unaries in i order + the pairs bin[i][j][B_i][B_j] (i < j)
-// in row-major order, as cost_from_luts computes it.
 #include <cuda_runtime.h>
 #include <climits>
 #include <cmath>
 #include <cstddef>
 #include <cstdint>
-#include <type_traits>
 
 namespace {
 
@@ -118,10 +110,6 @@ __device__ __forceinline__ float bf16_bits_to_f32(unsigned short b) {
   return __uint_as_float(static_cast<unsigned>(b) << 16);
 }
 
-// The table's element: bf16 bits, or f32 (the "f32" build).
-template <bool BF16>
-using Elem = std::conditional_t<BF16, unsigned short, float>;
-
 // Pair p of the order (a, b > a), a outer, that m codebooks have.
 __device__ __forceinline__ void pair_of(int p, int m, int& a, int& b) {
   a = 0;
@@ -134,62 +122,43 @@ __device__ __forceinline__ void pair_of(int p, int m, int& a, int& b) {
 
 // The MRF cost of the codes lanes 0..m-1 hold, with the table's pair terms
 // (see the head of this file); every lane returns the same value.
-template <bool BF16>
-__device__ __forceinline__ float mrf_cost(const float* u, const Elem<BF16>* __restrict__ table,
+__device__ __forceinline__ float mrf_cost(const float* u, const unsigned short* __restrict__ table,
                                           const unsigned short* __restrict__ lo, int code,
                                           float xsq, int m, int h, int lane) {
   float s = u[code_of(code, 0)];
   for (int i = 1; i < m; ++i) s += u[i * h + code_of(code, i)];
   const float base = xsq + s;
   const int npairs = m * (m - 1) / 2;
-  if constexpr (!BF16) {
-    // Pairs bin[i][j][B_i][B_j], i < j, in row-major order onto base.
-    float total = base;
-    for (int p0 = 0; p0 < npairs; p0 += 32) {
-      // Lane `lane` loads pair p0 + lane.
-      const bool live = p0 + lane < npairs;
-      int i = 0, j = 0;
-      if (live) pair_of(p0 + lane, m, i, j);
-      const int ci = __shfl_sync(kFull, code, i);
-      const int cj = __shfl_sync(kFull, code, j);
-      const float v =
-          live ? __ldcg(&table[((static_cast<size_t>(i) * m + j) * h + ci) * h + cj]) : 0.0f;
-      const int cnt = min(32, npairs - p0);
-      for (int q = 0; q < cnt; ++q) total += __shfl_sync(kFull, v, q);
-    }
-    return total;
-  } else {
-    // For each j: hi[k][j][B_k][B_j] and lo[k][j][B_k][B_j], k > j; lane
-    // `lane` loads pair q + lane of the order (j, k > j), j outer, 32 pairs
-    // at a time.
-    float pair = 0.0f, sh = 0.0f, sl = 0.0f, vh = 0.0f, vl = 0.0f;
-    int q = 0;
-    for (int j = 0; j < m - 1; ++j) {
-      for (int k = j + 1; k < m; ++k, ++q) {
-        if ((q & 31) == 0) {
-          const bool live = q + lane < npairs;
-          int a = 0, b = 0;
-          if (live) pair_of(q + lane, m, a, b);
-          const int ca = __shfl_sync(kFull, code, a);
-          const int cb = __shfl_sync(kFull, code, b);
-          const size_t at = ((static_cast<size_t>(b) * m + a) * h + cb) * h + ca;
-          vh = live ? bf16_bits_to_f32(__ldcg(&table[at])) : 0.0f;
-          vl = live ? bf16_bits_to_f32(__ldcg(&lo[at])) : 0.0f;
-        }
-        const float th = __shfl_sync(kFull, vh, q & 31);
-        const float tl = __shfl_sync(kFull, vl, q & 31);
-        if (k == j + 1) {
-          sh = th;
-          sl = tl;
-        } else {
-          sh += th;
-          sl += tl;
-        }
+  // For each j: hi[k][j][B_k][B_j] and lo[k][j][B_k][B_j], k > j; lane
+  // `lane` loads pair q + lane of the order (j, k > j), j outer, 32 pairs at
+  // a time.
+  float pair = 0.0f, sh = 0.0f, sl = 0.0f, vh = 0.0f, vl = 0.0f;
+  int q = 0;
+  for (int j = 0; j < m - 1; ++j) {
+    for (int k = j + 1; k < m; ++k, ++q) {
+      if ((q & 31) == 0) {
+        const bool live = q + lane < npairs;
+        int a = 0, b = 0;
+        if (live) pair_of(q + lane, m, a, b);
+        const int ca = __shfl_sync(kFull, code, a);
+        const int cb = __shfl_sync(kFull, code, b);
+        const size_t at = ((static_cast<size_t>(b) * m + a) * h + cb) * h + ca;
+        vh = live ? bf16_bits_to_f32(__ldcg(&table[at])) : 0.0f;
+        vl = live ? bf16_bits_to_f32(__ldcg(&lo[at])) : 0.0f;
       }
-      pair += sh + sl;
+      const float th = __shfl_sync(kFull, vh, q & 31);
+      const float tl = __shfl_sync(kFull, vl, q & 31);
+      if (k == j + 1) {
+        sh = th;
+        sl = tl;
+      } else {
+        sh += th;
+        sl += tl;
+      }
     }
-    return base + pair;
+    pair += sh + sl;
   }
+  return base + pair;
 }
 
 // Candidate t of a lane: strided by 32, or consecutive (PACKED).
@@ -201,14 +170,12 @@ __device__ __forceinline__ int cand(int lane, int t) {
 // A lane's share of one table row, in registers: the bytes of its CPL
 // values, two bf16 values a word where they are loaded packed, else one
 // value a word.
-template <int CPL, bool BF16, bool PACKED>
+template <int CPL, bool PACKED>
 struct RowRegs {
-  static constexpr int kWords = BF16 && PACKED ? CPL / 2 : CPL;
+  static constexpr int kWords = PACKED ? CPL / 2 : CPL;
   uint32_t w[kWords];
   __device__ __forceinline__ float value(int t) const {
-    if constexpr (!BF16) {
-      return __uint_as_float(w[t]);
-    } else if constexpr (PACKED) {
+    if constexpr (PACKED) {
       const uint32_t x = w[t >> 1];
       return __uint_as_float((t & 1) ? (x & 0xffff0000u) : (x << 16));
     } else {
@@ -219,21 +186,21 @@ struct RowRegs {
 
 // Table rows a visit keeps in flight at once: all m-1 up to 8, fewer where
 // a row takes many registers (64 registers of rows a lane at most).
-template <int CPL, bool BF16, bool PACKED>
+template <int CPL, bool PACKED>
 struct RowsInFlight {
-  static constexpr int kByRegs = 64 / RowRegs<CPL, BF16, PACKED>::kWords;
+  static constexpr int kByRegs = 64 / RowRegs<CPL, PACKED>::kWords;
   static constexpr int value = kByRegs > 8 ? 8 : kByRegs;
 };
 
 // Load a lane's share of table row r; candidates at or past h read as 0.
-template <int CPL, bool BF16, bool PACKED>
-__device__ __forceinline__ void load_row(const Elem<BF16>* __restrict__ r, int lane, int h,
-                                         RowRegs<CPL, BF16, PACKED>& row) {
+template <int CPL, bool PACKED>
+__device__ __forceinline__ void load_row(const unsigned short* __restrict__ r, int lane, int h,
+                                         RowRegs<CPL, PACKED>& row) {
   if constexpr (PACKED) {
     // h % CPL == 0: a lane is whole or idle, and r + lane*CPL is aligned to
     // the load's width.
-    constexpr int kBytes = CPL * static_cast<int>(sizeof(Elem<BF16>));
-    const Elem<BF16>* p = r + lane * CPL;
+    constexpr int kBytes = CPL * 2;
+    const unsigned short* p = r + lane * CPL;
     const bool live = lane * CPL < h;
     if constexpr (kBytes == 4) {
       row.w[0] = live ? __ldg(reinterpret_cast<const unsigned*>(p)) : 0u;
@@ -261,17 +228,16 @@ __device__ __forceinline__ void load_row(const Elem<BF16>* __restrict__ r, int l
   }
 }
 
-template <int CPL, bool BF16, bool PACKED>
+template <int CPL, bool PACKED>
 __global__ void __launch_bounds__(kWarps * 32)
-ils_kernel(const float* __restrict__ unaries, const Elem<BF16>* __restrict__ table,
+ils_kernel(const float* __restrict__ unaries, const unsigned short* __restrict__ table,
            const unsigned short* __restrict__ lo, const float* __restrict__ xsq,
            const int* __restrict__ B0, const int* __restrict__ orders,
            const float* __restrict__ pkeys, const int* __restrict__ pcodes,
            const int* __restrict__ ms_rounds, int n, int m, int h, int rounds, int icmiter,
            int npert, int n_ms, int* __restrict__ out_b, float* __restrict__ out_cost,
            int* __restrict__ ms_b, float* __restrict__ ms_cost, int* __restrict__ stats) {
-  static_assert(!PACKED || CPL * sizeof(Elem<BF16>) >= 4, "packed loads are 4+ bytes a lane");
-  static_assert(BF16 || (PACKED && CPL >= 4), "the f32 build is packed, 4+ a lane");
+  static_assert(!PACKED || CPL >= 2, "packed loads are 4+ bytes a lane");
   extern __shared__ __align__(16) float smem[];
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
@@ -288,7 +254,7 @@ ils_kernel(const float* __restrict__ unaries, const Elem<BF16>* __restrict__ tab
   int best = code;
   __syncwarp();
   const float x2 = __ldcs(&xsq[row]);
-  float best_cost = mrf_cost<BF16>(u, table, lo, best, x2, m, h, lane);
+  float best_cost = mrf_cost(u, table, lo, best, x2, m, h, lane);
 
   for (int r = 0; r < rounds; ++r) {
     // --- perturb: code == best here ---
@@ -334,22 +300,22 @@ ils_kernel(const float* __restrict__ unaries, const Elem<BF16>* __restrict__ tab
             uv[t] = c < h ? u[j * h + c] : INFINITY;
           }
         }
-        // bf16: the pair rows from 0, then the unary; f32: the unary, then the rows.
+        // The pair rows from 0, then the unary.
         float acc[CPL];
 #pragma unroll
-        for (int t = 0; t < CPL; ++t) acc[t] = BF16 ? 0.0f : uv[t];
-        constexpr int kRows = RowsInFlight<CPL, BF16, PACKED>::value;
+        for (int t = 0; t < CPL; ++t) acc[t] = 0.0f;
+        constexpr int kRows = RowsInFlight<CPL, PACKED>::value;
         // The visit's m-1 rows are those of k = kk + (kk >= j), kk = 0..m-2,
         // in k order; kRows of them are loaded before any is added.
         for (int kk0 = 0; kk0 < m - 1; kk0 += kRows) {
-          RowRegs<CPL, BF16, PACKED> rows[kRows];
+          RowRegs<CPL, PACKED> rows[kRows];
 #pragma unroll
           for (int i = 0; i < kRows; ++i) {
             const int kk = kk0 + i;
             const int k = kk + (kk >= j);
             const int ck = code_of(code, k & 31);
             if (kk < m - 1)
-              load_row<CPL, BF16, PACKED>(
+              load_row<CPL, PACKED>(
                   table + ((static_cast<size_t>(k) * m + j) * h + ck) * h, lane, h, rows[i]);
           }
 #pragma unroll
@@ -360,10 +326,8 @@ ils_kernel(const float* __restrict__ unaries, const Elem<BF16>* __restrict__ tab
             }
           }
         }
-        if constexpr (BF16) {
 #pragma unroll
-          for (int t = 0; t < CPL; ++t) acc[t] = uv[t] + acc[t];
-        }
+        for (int t = 0; t < CPL; ++t) acc[t] = uv[t] + acc[t];
         // A lane's candidates ascend with t, so a strict < keeps its lowest c.
         float bv = acc[0];
         int bc = cand<CPL, PACKED>(lane, 0) < h ? cand<CPL, PACKED>(lane, 0) : INT_MAX;
@@ -382,7 +346,7 @@ ils_kernel(const float* __restrict__ unaries, const Elem<BF16>* __restrict__ tab
     }
 
     // --- accept if strictly better, else restore ---
-    const float newcost = mrf_cost<BF16>(u, table, lo, code, x2, m, h, lane);
+    const float newcost = mrf_cost(u, table, lo, code, x2, m, h, lane);
     const bool better = newcost < best_cost;
     if (stats != nullptr && lane == 0) {
       if (better) atomicAdd(&stats[2 * r], 1);
@@ -405,19 +369,19 @@ ils_kernel(const float* __restrict__ unaries, const Elem<BF16>* __restrict__ tab
   if (lane == 0) out_cost[row] = best_cost;
 }
 
-template <int CPL, bool BF16, bool PACKED>
+template <int CPL, bool PACKED>
 int launch(const void* unaries, const void* table, const void* lo, const void* xsq,
            const void* B0, const void* orders, const void* pkeys, const void* pcodes,
            const void* ms_rounds, int n, int m, int h, int rounds, int icmiter, int npert,
            int n_ms, void* out_b, void* out_cost, void* ms_b, void* ms_cost, void* stats,
            cudaStream_t stream, int smem) {
-  auto kernel = ils_kernel<CPL, BF16, PACKED>;
+  auto kernel = ils_kernel<CPL, PACKED>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int grid = (n + kWarps - 1) / kWarps;
   kernel<<<grid, kWarps * 32, smem, stream>>>(
-      static_cast<const float*>(unaries), static_cast<const Elem<BF16>*>(table),
+      static_cast<const float*>(unaries), static_cast<const unsigned short*>(table),
       static_cast<const unsigned short*>(lo), static_cast<const float*>(xsq),
       static_cast<const int*>(B0), static_cast<const int*>(orders),
       static_cast<const float*>(pkeys), static_cast<const int*>(pcodes),
@@ -456,11 +420,10 @@ int lsq_ils_encode(const void* unaries, const void* table, const void* lo, const
                    const void* ms_rounds, int n, int m, int h, int rounds, int icmiter,
                    int npert, int n_ms, void* out_b, void* out_cost, void* ms_b,
                    void* ms_cost, void* stats, void* stream) {
-#define LSQ_ILS_LAUNCH(CPL)                                                   \
-  return can_pack(h, CPL) ? launch<CPL, true, true>(LSQ_ILS_ARGS) \
-                          : launch<CPL, true, false>(LSQ_ILS_ARGS)
+#define LSQ_ILS_LAUNCH(CPL) \
+  return can_pack(h, CPL) ? launch<CPL, true>(LSQ_ILS_ARGS) : launch<CPL, false>(LSQ_ILS_ARGS)
   if (!aligned16(table) || !aligned16(lo)) return static_cast<int>(cudaErrorMisalignedAddress);
-  if (h <= 32) return launch<1, true, false>(LSQ_ILS_ARGS);
+  if (h <= 32) return launch<1, false>(LSQ_ILS_ARGS);
   if (h <= 64) LSQ_ILS_LAUNCH(2);
   if (h <= 128) LSQ_ILS_LAUNCH(4);
   if (h <= 256) LSQ_ILS_LAUNCH(8);
@@ -468,29 +431,6 @@ int lsq_ils_encode(const void* unaries, const void* table, const void* lo, const
   if (h <= 1024) LSQ_ILS_LAUNCH(32);
 #undef LSQ_ILS_LAUNCH
   return static_cast<int>(cudaErrorInvalidValue);
-}
-
-// K1 as one of two builds, to time them in one run: step 0 "f32", the
-// function K1 had before its table was rounded (table: the f32 binaries;
-// lo unused), step 1 "bf16", what lsq_ils_encode runs here. Eight
-// candidates a lane only: 128 < h <= 256, h % 8 == 0, a 16-byte aligned
-// table.
-int lsq_ils_encode_step(int step, const void* unaries, const void* table, const void* lo,
-                        const void* xsq, const void* B0, const void* orders,
-                        const void* pkeys, const void* pcodes, const void* ms_rounds, int n,
-                        int m, int h, int rounds, int icmiter, int npert, int n_ms,
-                        void* out_b, void* out_cost, void* ms_b, void* ms_cost, void* stats,
-                        void* stream) {
-  if (h <= 128 || h > 256 || h % 8 != 0 || !aligned16(table))
-    return static_cast<int>(cudaErrorInvalidValue);
-  switch (step) {
-    case 0:
-      return launch<8, false, true>(LSQ_ILS_ARGS);
-    case 1:
-      return launch<8, true, true>(LSQ_ILS_ARGS);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
 }
 
 #undef LSQ_ILS_ARGS

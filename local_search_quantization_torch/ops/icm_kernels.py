@@ -19,8 +19,7 @@
 - `icm_sweeps_step`: K5 at one stage of its redesign for this card (the
   first port's visit, the same with its loads hoisted, the kernel that
   runs), so that one run times them side by side; a measurement tool on no
-  path, with K5's plain version. `ils_encode_step` times K1 beside the
-  f32 function it had before its table was rounded as the TPU's is.
+  path, with K5's plain version.
 - `ils_visits_needed`: the row-visits of K1's encode whose inputs changed,
   the ones the kernel does; it skips the rest, whose argmin is the code the
   row already holds.
@@ -36,7 +35,7 @@ import ctypes
 import torch
 
 from local_search_quantization_torch import _build
-from local_search_quantization_torch.ops.icm import _condition, cost_from_luts
+from local_search_quantization_torch.ops.icm import _condition
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -153,6 +152,19 @@ def _k1_functions(unaries, binaries, xsq):
             lambda B: mrf_cost_hi_lo(xsq, unaries, hif, lof, B))
 
 
+def _check_milestones(milestones, rounds: int) -> tuple:
+    """K1's milestones as a tuple; raises unless they are strictly
+    increasing rounds in [1, rounds] (the TPU wrapper asserts the same,
+    icm_pallas.py:690-692). Each must be a round the encode reaches: K1
+    writes a snapshot only there, and its outputs are `torch.empty`."""
+    milestones = tuple(int(r) for r in milestones)
+    if milestones and (tuple(sorted(set(milestones))) != milestones
+                       or milestones[0] < 1 or milestones[-1] > rounds):
+        raise ValueError(f"milestones must be strictly increasing rounds in "
+                         f"[1, {rounds}], got {milestones}")
+    return milestones
+
+
 def ils_encode_streamed_reference(unaries, binaries, xsq, B0, orders,
                                   pert_keys, pert_codes, *, icmiter: int,
                                   milestones=(), with_stats: bool = False):
@@ -171,28 +183,17 @@ def ils_encode_streamed_reference(unaries, binaries, xsq, B0, orders,
       unaries [n, m, h] f32, binaries [m, m, h, h] f32, xsq [n] f32,
       B0 [n, m] int, orders [rounds, m] int (visit order per round),
       pert_keys [rounds, n, m] f32, pert_codes [rounds, n, npert] int.
-      milestones: 1-based rounds after which to snapshot the best codes.
+      milestones: 1-based rounds after which to snapshot the best codes,
+      strictly increasing in [1, rounds] (else ValueError).
 
     Returns (B [n, m] int32, cost [n] f32, ms_B [n_ms, n, m] int32 | None,
     ms_cost [n_ms, n] f32 | None, stats [rounds, 2] f32 | None), where
     stats counts the rows whose proposal was better / equal each round.
     """
+    milestones = _check_milestones(milestones, orders.shape[0])
     scores, cost = _k1_functions(unaries, binaries, xsq)
     out = _ils_loop(unaries, xsq, B0, orders, pert_keys, pert_codes, icmiter, scores,
-                    cost, tuple(milestones))
-    return out if with_stats else out[:4] + (None,)
-
-
-def _ils_f32_reference(unaries, binaries, xsq, B0, orders, pert_keys, pert_codes, *,
-                       icmiter: int, milestones=(), with_stats: bool = False):
-    """The oracle of `ils_encode_step`'s "f32" build: K1's loop on the f32
-    table, each visit the unary and then binaries[k, j][B_k] for k != j in k
-    order (`icm._condition`), the cost exact f32 (`cost_from_luts`).
-    Arguments and results as `ils_encode_streamed_reference`."""
-    out = _ils_loop(unaries, xsq, B0, orders, pert_keys, pert_codes, icmiter,
-                    lambda cur, j: _condition(unaries[:, j], binaries[:, j], cur, j),
-                    lambda B: cost_from_luts(xsq, unaries, binaries, B),
-                    tuple(milestones))
+                    cost, milestones)
     return out if with_stats else out[:4] + (None,)
 
 
@@ -219,12 +220,10 @@ def ils_visits_needed(unaries, binaries, xsq, B0, orders, pert_keys, pert_codes,
     return out
 
 
-def _ils_launch(entry, lead, what, unaries, binaries, xsq, B0, orders, pert_keys,
-                pert_codes, icmiter, milestones, with_stats, split=True):
-    """Check K1's inputs on the card and launch `entry` of its library
-    (`lead`: the arguments before the common ones). `split`: hand the
-    kernel the table's bf16 hi/lo split (`split_hi_lo`, made here once),
-    else the f32 table itself. Returns (the results, as
+def _ils_launch(what, unaries, binaries, xsq, B0, orders, pert_keys, pert_codes, icmiter,
+                milestones, with_stats):
+    """Check K1's inputs on the card and launch it on the table's bf16 hi/lo
+    split (`split_hi_lo`, made here once). Returns (the results, as
     `ils_encode_streamed_reference` gives them, and whether it launched:
     not for n == 0)."""
     dev = unaries.device
@@ -254,7 +253,7 @@ def _ils_launch(entry, lead, what, unaries, binaries, xsq, B0, orders, pert_keys
     if lib.lsq_ils_smem_bytes(m, h) > _SMEM_LIMIT or h > lib.lsq_ils_max_h():
         raise ValueError(f"{what}: m={m}, h={h} needs more "
                          "shared memory or registers than the kernel has")
-    milestones = tuple(milestones)
+    milestones = _check_milestones(milestones, rounds)
     n_ms = len(milestones)
     out_b = torch.empty((n, m), dtype=torch.int32, device=dev)
     out_cost = torch.empty((n,), dtype=torch.float32, device=dev)
@@ -265,12 +264,11 @@ def _ils_launch(entry, lead, what, unaries, binaries, xsq, B0, orders, pert_keys
     ms_rounds = torch.tensor([r - 1 for r in milestones], dtype=torch.int32,
                              device=dev)
     if n:
-        table, lo = split_hi_lo(binaries) if split else (binaries, None)
-        fn = getattr(lib, entry)
-        fn.argtypes = [_I] * len(lead) + [_P] * 9 + [_I] * 7 + [_P] * 6
+        table, lo = split_hi_lo(binaries)
+        fn = lib.lsq_ils_encode
+        fn.argtypes = [_P] * 9 + [_I] * 7 + [_P] * 6
         fn.restype = _I
-        err = fn(*lead,
-                 _ptr(unaries), _ptr(table), _ptr(lo), _ptr(xsq), _ptr(B0), _ptr(orders),
+        err = fn(_ptr(unaries), _ptr(table), _ptr(lo), _ptr(xsq), _ptr(B0), _ptr(orders),
                  _ptr(pert_keys), _ptr(pert_codes), _ptr(ms_rounds),
                  n, m, h, rounds, icmiter, npert, n_ms,
                  _ptr(out_b), _ptr(out_cost), _ptr(ms_b), _ptr(ms_cost), _ptr(stats),
@@ -296,56 +294,13 @@ def ils_encode_streamed(unaries, binaries, xsq, B0, orders, pert_keys,
             icmiter=icmiter, milestones=milestones, with_stats=with_stats)
     if dev.type != "cuda":
         raise ValueError(f"ils_encode_streamed: unsupported device {dev}")
-    out, launched = _ils_launch("lsq_ils_encode", (), "ils_encode_streamed", unaries,
-                                binaries, xsq, B0, orders, pert_keys, pert_codes,
-                                icmiter, milestones, with_stats)
+    out, launched = _ils_launch("ils_encode_streamed", unaries, binaries, xsq, B0, orders,
+                                pert_keys, pert_codes, icmiter, milestones, with_stats)
     ils_encode_streamed.launches += launched
     return out
 
 
 ils_encode_streamed.launches = 0
-
-# The builds of `lsq_ils_encode_step`, in the order of its `step`: "f32" is
-# K1 before its table was rounded (f32 table rows, exact f32 cost), "bf16"
-# the build `ils_encode_streamed` runs at eight candidates a lane.
-ILS_STEPS = ("f32", "bf16")
-
-
-def ils_encode_step(unaries, binaries, xsq, B0, orders, pert_keys, pert_codes, *,
-                    icmiter: int, step: str, milestones=(), with_stats: bool = False):
-    """K1 as one of two builds, so that one run times them side by side:
-    "bf16" is `ils_encode_streamed`'s kernel and function; "f32" computes
-    the function K1 had before (each visit conditioned on f32 table rows,
-    the unary first; the round accepted on the exact f32 cost), whose plain
-    version is `_ils_f32_reference`. A measurement tool on no path.
-
-    Arguments and results as `ils_encode_streamed`; CPU tensors get the
-    step's plain version. On the card it takes eight candidates a lane
-    only: 128 < h <= 256, h % 8 == 0 and, for "f32", a 16-byte aligned
-    table. Counts its launches per step in `ils_encode_step.launches`.
-    """
-    if step not in ILS_STEPS:
-        raise ValueError(f"step must be one of {ILS_STEPS}, got {step!r}")
-    dev = unaries.device
-    if dev.type == "cpu":
-        plain = _ils_f32_reference if step == "f32" else ils_encode_streamed_reference
-        return plain(unaries, binaries, xsq, B0, orders, pert_keys, pert_codes,
-                     icmiter=icmiter, milestones=milestones, with_stats=with_stats)
-    if dev.type != "cuda":
-        raise ValueError(f"ils_encode_step: unsupported device {dev}")
-    h = unaries.shape[2]
-    if not (128 < h <= 256 and h % 8 == 0):
-        raise ValueError(f"ils_encode_step: needs 128 < h <= 256 and h % 8 == 0, got h={h}")
-    out, launched = _ils_launch("lsq_ils_encode_step", (ILS_STEPS.index(step),),
-                                f"ils_encode_step {step}", unaries, binaries, xsq, B0,
-                                orders, pert_keys, pert_codes, icmiter, milestones,
-                                with_stats, split=step == "bf16")
-    ils_encode_step.launches[step] += launched
-    return out
-
-
-ils_encode_step.launches = {s: 0 for s in ILS_STEPS}
-
 
 def binaries_to_j_stacked(binaries: torch.Tensor) -> torch.Tensor:
     """[m, m, h, h] -> [m, m*h, h] with the (j, j) blocks zeroed:

@@ -6,7 +6,7 @@ kernel's function: visits conditioned on the pairwise table rounded to
 bf16, rounds accepted on the hi/lo cost. On tables where bf16 rounding
 decides argmins it equals the Pallas kernel (`fused_ils_encode`, interpret
 mode) bit for bit, and K1's function before the rounding (the f32 loop,
-`ils_encode_step`'s "f32" oracle) does not.
+`f32_loop`) does not.
 
 K1 (`csrc/ils_encode.cu`) skips a visit to codebook j when no other code of
 the row changed since j's last visit in the round: its scores would be the
@@ -27,15 +27,13 @@ from local_search_quantization_tpu.ops import luts as jluts
 from local_search_quantization_tpu.ops.icm_pallas import fused_ils_encode
 from local_search_quantization_torch.ops import luts as tluts
 from local_search_quantization_torch.ops.icm_kernels import (
-    ILS_STEPS,
-    _ils_f32_reference,
     _k1_functions,
-    ils_encode_step,
+    ils_encode_streamed,
     ils_encode_streamed_reference,
     ils_visits_needed,
     split_hi_lo,
 )
-from test_torch_kernels_gpu import bf16_decisive_tables
+from test_torch_kernels_gpu import bf16_decisive_tables, f32_loop
 
 torch.set_num_threads(1)
 
@@ -180,22 +178,17 @@ def test_visits_needed_runs_the_plain_loop_on_the_plain_versions_inputs():
     assert torch.all(per_sweep[:, -1] < per_sweep[:, 1])
 
 
-def test_ils_encode_step_routes_cpu_to_plain_version_and_checks_its_step():
+def test_ils_encode_streamed_routes_cpu_to_plain_version_and_checks_its_device():
     args = _inputs(48, 8, 4, 16, 2, 2, seed=2, integer=True)
-    plain = {"f32": _ils_f32_reference, "bf16": ils_encode_streamed_reference}
-    for step in ILS_STEPS:
-        want = plain[step](*args, icmiter=2, milestones=(1,), with_stats=True)
-        before = ils_encode_step.launches[step]
-        got = ils_encode_step(*args, icmiter=2, step=step, milestones=(1,),
-                              with_stats=True)
-        assert ils_encode_step.launches[step] == before  # no kernel on the CPU
-        for g, w in zip(got, want):
-            torch.testing.assert_close(g, w, rtol=0, atol=0)
-    with pytest.raises(ValueError, match="step must be one of"):
-        ils_encode_step(*args, icmiter=2, step="skip_packed")
+    want = ils_encode_streamed_reference(*args, icmiter=2, milestones=(1,), with_stats=True)
+    before = ils_encode_streamed.launches
+    got = ils_encode_streamed(*args, icmiter=2, milestones=(1,), with_stats=True)
+    assert ils_encode_streamed.launches == before  # no kernel on the CPU
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
     meta = [t.to("meta") for t in args]
     with pytest.raises(ValueError, match="unsupported device"):
-        ils_encode_step(*meta, icmiter=2, step="bf16")
+        ils_encode_streamed(*meta, icmiter=2)
 
 
 def _pallas_and_streamed(u, b, xsq, B0, R, icmiter, npert, milestones, seed):
@@ -234,8 +227,7 @@ def test_k1_plain_is_the_pallas_kernel_where_bf16_rounding_decides(n, m, h, R, i
                                          with_stats=True)
     for got, want in zip(port, jout):
         np.testing.assert_array_equal(got.numpy(), want)
-    f32 = _ils_f32_reference(*args, icmiter=icmiter, milestones=milestones,
-                             with_stats=True)
+    f32 = f32_loop(*args, icmiter=icmiter, milestones=milestones)
     assert (f32[0].numpy() != jout[0]).any() and (f32[2].numpy() != jout[2]).any()
     assert (jout[0] != B0).any()
 
@@ -259,3 +251,24 @@ def test_k1_plain_costs_track_the_pallas_kernel_on_continuous_data():
     np.testing.assert_allclose(port[1].numpy(), jout[1], rtol=1e-5)
     np.testing.assert_allclose(port[3].numpy(), jout[3], rtol=1e-5)
     assert (port[0].numpy() == jout[0]).all(1).mean() >= 0.99
+
+
+@pytest.mark.parametrize("milestones", [(0,), (3,), (2, 1), (1, 1)])
+def test_k1_refuses_milestones_it_would_leave_unwritten(milestones):
+    """K1 writes a milestone's snapshot only at a round the encode reaches,
+    into outputs that start as `torch.empty`: milestones that are not
+    strictly increasing rounds in [1, rounds] are refused (ValueError) by
+    the wrapper and its plain version alike, before any launch, as the TPU
+    wrapper refuses those past the last round, repeated or out of order."""
+    args = _inputs(32, 8, 4, 16, 2, 2, seed=3, integer=True)
+    with pytest.raises(ValueError, match="milestones"):
+        ils_encode_streamed(*args, icmiter=1, milestones=milestones)
+    with pytest.raises(ValueError, match="milestones"):
+        ils_encode_streamed_reference(*args, icmiter=1, milestones=milestones)
+    if milestones != (0,):  # the TPU wrapper does not check the lower end
+        u, b, xsq, B0, orders = (a.numpy() for a in args[:5])
+        with pytest.raises(AssertionError):
+            fused_ils_encode(jax.random.PRNGKey(0), jnp.asarray(orders), jnp.asarray(u),
+                             jnp.asarray(b), jnp.asarray(xsq), jnp.asarray(B0), ilsiter=2,
+                             icmiter=1, npert=2, tile=32, interpret=True,
+                             milestones=milestones)

@@ -1,0 +1,162 @@
+"""The catalogue of kernel cases (`utils/kernel_cases.py`) on the CPU.
+
+Every C entry point in `csrc/*.cu` that launches a kernel must have a case,
+for each variant or step it accepts and each code layout it takes, so that a
+kernel added without one fails here. Each case's plain half runs at its own
+shapes (the wrappers take their plain versions for CPU tensors); the card
+runs the kernel halves (`tests/test_torch_kernels_gpu.py`, chip_smoke.py).
+"""
+
+import os
+import re
+import sys
+
+import pytest
+import torch
+
+from local_search_quantization_torch import _build
+from local_search_quantization_torch.utils import kernel_cases as kc
+
+_CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                     "local_search_quantization_torch", "csrc")
+_KEYWORDS = {"if", "for", "while", "switch", "return", "sizeof", "static_cast"}
+
+
+def _body(src: str, brace: int) -> str:
+    """The text between the brace at `brace` and its match."""
+    depth = 0
+    for i in range(brace, len(src)):
+        depth += {"{": 1, "}": -1}.get(src[i], 0)
+        if depth == 0:
+            return src[brace + 1:i]
+    raise ValueError("unbalanced braces")
+
+
+def _functions(src: str) -> dict[str, str]:
+    """{name: the bodies of every definition of that name}, templates and
+    overloads joined."""
+    out: dict[str, str] = {}
+    for m in re.finditer(r"\b(\w+)\s*(?:<[^;{}()]*>)?\s*\(([^;{}]*)\)\s*(?:const\s*)?\{", src):
+        if m.group(1) not in _KEYWORDS:
+            out[m.group(1)] = out.get(m.group(1), "") + _body(src, m.end() - 1)
+    return out
+
+
+def _launching_entries() -> dict[str, dict[str, set[int]]]:
+    """{C entry point: {switch parameter: the values it accepts}} for every
+    function of an `extern "C"` block in csrc/*.cu that reaches a `<<<...>>>`
+    launch, directly or through the file's other functions. The parameters
+    are the `switch`es of its body (cases written out or made by a macro)
+    and its tests of `code_bytes`/`elem_bytes`."""
+    entries = {}
+    for name in sorted(os.listdir(_CSRC)):
+        if not name.endswith(".cu"):
+            continue
+        with open(os.path.join(_CSRC, name)) as f:
+            src = re.sub(r"//[^\n]*", "", f.read())
+        funcs = _functions(src)
+        launching = {f for f, body in funcs.items() if "<<<" in body}
+        grew = True
+        while grew:
+            new = {f for f, body in funcs.items() if f not in launching and any(
+                re.search(rf"\b{g}\s*(<[^;()]*>)?\s*\(", body) for g in launching)}
+            launching |= new
+            grew = bool(new)
+        block = src.index('extern "C" {')
+        for fname, body in _functions(_body(src, block + len('extern "C" '))).items():
+            if fname not in launching:
+                continue
+            params: dict[str, set[int]] = {}
+            for sw in re.finditer(r"switch\s*\((\w+)\)\s*\{", body):
+                sbody = _body(body, sw.end() - 1)
+                vals = {int(v) for v in re.findall(r"\bcase\s+(\d+)\s*:", sbody)}
+                for mac in re.finditer(r"#define\s+(\w+)\((\w+)[^)]*\)[^\n]*\\\n\s*case\s+(\w+)",
+                                       body):
+                    if mac.group(2) == mac.group(3):
+                        vals |= {int(v) for v in re.findall(rf"\b{mac.group(1)}\((\d+)", sbody)}
+                params[sw.group(1)] = vals
+            for p in ("code_bytes", "elem_bytes"):
+                vals = {int(v) for v in re.findall(rf"\b{p}\s*==\s*(\d+)", body)}
+                if vals:
+                    params[p] = vals
+            entries[fname] = params
+    return entries
+
+
+def test_every_launching_entry_point_has_a_case_for_each_value_it_accepts():
+    entries = _launching_entries()
+    # The parse finds the entry points that launch, and only those.
+    assert {"lsq_ils_encode", "lsq_icm_sweeps_v2", "lsq_icm_sweeps_v1",
+            "lsq_icm_sweeps_dissect", "lsq_icm_sweeps_step", "lsq_scan_topk",
+            "lsq_k2_filter", "lsq_k2_select", "lsq_select_topk", "lsq_scan_key",
+            "lsq_l2_gather"} == set(entries)
+    assert entries["lsq_icm_sweeps_dissect"]["variant"] == {0, 1, 2, 3, 4}
+    assert entries["lsq_icm_sweeps_step"]["step"] == {0, 1, 2}
+    assert entries["lsq_scan_key"]["code_bytes"] == {1, 4}
+    for entry, params in entries.items():
+        cases = [c for c in kc.CASES if entry in c.entries]
+        assert cases, f"{entry} has no case"
+        for param, values in params.items():
+            covered = {c.params.get(param) for c in cases}
+            assert values <= covered, f"{entry}: {param} {values - covered} has no case"
+    names = [c.name for c in kc.CASES]
+    assert len(set(names)) == len(names)
+
+
+@pytest.mark.parametrize("case", kc.CASES, ids=[c.name for c in kc.CASES])
+def test_case_plain_half_runs_on_the_cpu(case):
+    """On CPU tensors the wrapper takes its plain version: the case passes
+    and launches nothing."""
+    bad, launched = kc.run_case(case, torch.device("cpu"))
+    assert bad is None and launched == 0
+
+
+def test_catalogue_command_line_on_the_cpu(capsys):
+    try:
+        assert kc.main(["--device", "cpu", "--only", "K2 select", "--fill", "nan"]) == 0
+    finally:
+        torch.use_deterministic_algorithms(False)
+    out = capsys.readouterr().out.splitlines()
+    assert out[-1] == ("kernel_cases: all 3 cases passed on cpu (0 kernel launches, "
+                       "fill nan)")
+
+
+def test_catalogue_asks_for_the_card_by_default():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        kc.main(["--only", "K2 select"])
+
+
+def test_sanitizer_filter_names_every_kernel_in_csrc():
+    """The sanitizer checks the kernels whose mangled names hold one of
+    `SANITIZED_KERNELS`: every `__global__` function in csrc/ is one of
+    them, and each name matches a kernel."""
+    kernels = set()
+    for name in os.listdir(_CSRC):
+        if name.endswith(".cu"):
+            with open(os.path.join(_CSRC, name)) as f:
+                kernels |= set(re.findall(r"__global__\s+void\s+(?:__launch_bounds__\(.*\)\s+)?"
+                                          r"(\w+)\s*\(", f.read()))
+    assert len(kernels) == 9
+    assert kernels == set(kc.SANITIZED_KERNELS)
+
+
+def test_sanitizer_is_found_as_nvcc_is_and_its_command_runs_the_cases(tmp_path, monkeypatch):
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    monkeypatch.setenv("PATH", str(tmp_path / "nowhere"))
+    assert _build.sanitizer() is None
+    with pytest.raises(RuntimeError, match="compute-sanitizer not found in .*bin"):
+        kc.sanitizer_command("memcheck")
+    tool = tmp_path / "compute-sanitizer" / "compute-sanitizer"
+    tool.parent.mkdir()
+    tool.write_text("")
+    assert _build.sanitizer() == str(tool)
+    (tmp_path / "bin").mkdir()
+    (tmp_path / "bin" / "compute-sanitizer").write_text("")
+    assert _build.sanitizer() == str(tmp_path / "bin" / "compute-sanitizer")
+    cmd = kc.sanitizer_command("racecheck")
+    assert cmd[:3] == [_build.sanitizer(), "--tool", "racecheck"]
+    assert cmd[-5:] == [sys.executable, "-m", kc.__name__, "--device", "cuda"]
+    assert [cmd[i + 1] for i, a in enumerate(cmd) if a == "--kernel-name"] == [
+        f"kns={k}" for k in kc.SANITIZED_KERNELS]

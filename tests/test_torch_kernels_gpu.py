@@ -13,16 +13,15 @@ import torch
 
 from local_search_quantization_torch import _build
 from local_search_quantization_torch.ops import icm, luts
+from local_search_quantization_torch.ops.icm import _condition, cost_from_luts
 from local_search_quantization_torch.ops.icm_kernels import (
     DISSECT_VARIANTS,
-    _ils_f32_reference,
+    _ils_loop,
     binaries_to_j_stacked,
     fused_icm_sweeps,
     fused_icm_sweeps_reference,
     icm_sweeps_dissect,
     icm_sweeps_dissect_reference,
-    ILS_STEPS,
-    ils_encode_step,
     ils_encode_streamed,
     ils_encode_streamed_reference,
     ils_kernel_fits,
@@ -42,6 +41,7 @@ from local_search_quantization_torch.ops.select_kernels import (
     select_cap,
     select_kernel_fits,
 )
+from local_search_quantization_torch.utils import kernel_cases
 
 pytestmark = pytest.mark.gpu
 
@@ -84,6 +84,8 @@ def _k1_inputs(dev, n, d, m, h, R, npert, integer, seed=0):
     (512, 16, 4, 1000, 2, 2, False),  # 32 a lane, one element each
     (2048, 16, 1, 64, 3, 1, False),  # m=1: no pair rows; every visit after the first skipped
     (2048, 16, 2, 256, 3, 2, False),  # m=2: one pair row a visit
+    (4096, 32, 7, 256, 3, 4, True),  # 8 a lane, the SIFT lane map
+    (2048, 16, 5, 136, 2, 2, False),  # 8 a lane, one 16-byte load a row, idle lanes
 ])
 def test_k1_kernel_matches_plain_version(cuda, shape):
     n, d, m, h, R, npert, integer = shape
@@ -97,12 +99,11 @@ def test_k1_kernel_matches_plain_version(cuda, shape):
         torch.testing.assert_close(g, w, rtol=0, atol=0)
 
 
-def test_k1_wrapper_aligns_an_off_boundary_table_and_the_f32_step_refuses_it(cuda):
+def test_k1_wrapper_aligns_an_off_boundary_table(cuda):
     """A contiguous f32 table that starts 4 bytes past a 16-byte boundary:
     K1's wrapper splits it into bf16 tables of its own, which are aligned
     (the kernel's entry refuses any other), so K1 gives the plain version's
-    outputs; the "f32" step, which reads the table as given 16 bytes a
-    lane, refuses it."""
+    outputs."""
     args = list(_k1_inputs(cuda, 2048, 32, 7, 256, 2, 4, False))
     buf = torch.empty(args[1].numel() + 1, device=cuda)
     args[1] = buf[1:].view(args[1].shape).copy_(args[1])
@@ -112,8 +113,6 @@ def test_k1_wrapper_aligns_an_off_boundary_table_and_the_f32_step_refuses_it(cud
     want = ils_encode_streamed_reference(*args, **kw)
     for g, w in zip(got, want):
         torch.testing.assert_close(g, w, rtol=0, atol=0)
-    with pytest.raises(RuntimeError, match="ils_encode_step f32"):
-        ils_encode_step(*args, step="f32", **kw)
 
 
 def test_k1_skips_visits_and_keeps_every_output_on_a_converging_fixture(cuda):
@@ -131,27 +130,15 @@ def test_k1_skips_visits_and_keeps_every_output_on_a_converging_fixture(cuda):
         torch.testing.assert_close(g, w, rtol=0, atol=0)
 
 
-@pytest.mark.parametrize("shape", [(4096, 32, 7, 256, 3, 4, True),
-                                   (2048, 16, 5, 136, 2, 2, False)])
-def test_k1_stages_give_the_plain_versions_outputs(cuda, shape):
-    """Both builds of `ils_encode_step` give their plain versions' five
-    outputs, one launch each: "bf16" (the kernel K1 runs) the plain
-    version's, "f32" (K1's function before its table was rounded) its
-    oracle's."""
-    n, d, m, h, R, npert, integer = shape
-    args = _k1_inputs(cuda, n, d, m, h, R, npert, integer)
-    kw = dict(icmiter=4, milestones=(1, R), with_stats=True)
-    plain = {"f32": _ils_f32_reference, "bf16": ils_encode_streamed_reference}
-    for step in ILS_STEPS:
-        want = plain[step](*args, **kw)
-        before = ils_encode_step.launches[step]
-        got = ils_encode_step(*args, step=step, **kw)
-        assert ils_encode_step.launches[step] == before + 1
-        for g, w in zip(got, want):
-            torch.testing.assert_close(g, w, rtol=0, atol=0)
-    with pytest.raises(ValueError):  # eight candidates a lane only
-        ils_encode_step(*_k1_inputs(cuda, 64, 8, 3, 64, 1, 1, True), icmiter=1,
-                        step="bf16")
+def f32_loop(unaries, binaries, xsq, B0, orders, pert_keys, pert_codes, *, icmiter,
+             milestones=()):
+    """K1's loop on the f32 table, the function K1 had before its table was
+    rounded: each visit the unary and then binaries[k, j][B_k] for k != j
+    in k order, each round accepted on the exact f32 cost. (B, cost, ms_B,
+    ms_cost, stats) as `ils_encode_streamed_reference`."""
+    return _ils_loop(unaries, xsq, B0, orders, pert_keys, pert_codes, icmiter,
+                     lambda cur, j: _condition(unaries[:, j], binaries[:, j], cur, j),
+                     lambda B: cost_from_luts(xsq, unaries, binaries, B), tuple(milestones))
 
 
 def bf16_decisive_tables(n, m, h, seed):
@@ -182,7 +169,7 @@ def bf16_decisive_tables(n, m, h, seed):
 
 def test_k1_follows_bf16_rounding_on_the_card(cuda):
     """On tables where bf16 rounding decides argmins, K1 gives its plain
-    version's five outputs and the "f32" step other codes."""
+    version's five outputs and the f32 loop other codes."""
     n, m, h, R, npert = 2048, 4, 256, 3, 2
     u, b, xsq, B0 = bf16_decisive_tables(n, m, h, seed=1)
     rng = np.random.default_rng(2)
@@ -195,9 +182,25 @@ def test_k1_follows_bf16_rounding_on_the_card(cuda):
     want = ils_encode_streamed_reference(*args, **kw)
     for g, w in zip(got, want):
         torch.testing.assert_close(g, w, rtol=0, atol=0)
-    f32 = ils_encode_step(*args, step="f32", **kw)
-    torch.testing.assert_close(f32[0], _ils_f32_reference(*args, **kw)[0], rtol=0, atol=0)
+    f32 = f32_loop(*args, icmiter=2, milestones=(1, R))
     assert (f32[0] != got[0]).any()
+
+
+def test_k1_refuses_milestones_it_would_leave_unwritten_on_the_card(cuda):
+    """The audit's repair: K1 snapshots a milestone only at a round the
+    encode reaches, into `torch.empty` outputs, so the wrapper refuses
+    milestones outside [1, rounds], repeated or out of order before it
+    launches; a valid list still gives the plain version's outputs."""
+    args = _k1_inputs(cuda, 512, 16, 4, 32, 2, 2, False)
+    before = ils_encode_streamed.launches
+    for milestones in ((0,), (3,), (2, 1), (1, 1)):
+        with pytest.raises(ValueError, match="milestones"):
+            ils_encode_streamed(*args, icmiter=1, milestones=milestones)
+    assert ils_encode_streamed.launches == before
+    got = ils_encode_streamed(*args, icmiter=1, milestones=(1, 2))
+    want = ils_encode_streamed_reference(*args, icmiter=1, milestones=(1, 2))
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
 
 
 def test_k1_dead_rows_never_accept(cuda):
@@ -853,3 +856,36 @@ def test_mesh_search_on_the_card_matches_single_device(cuda, shards, k):
     C1 = sharded_update_codebooks(mesh, Xs, Bs, h, n_valid=20_000)
     assert torch.equal(C1, sharded_update_codebooks(mesh, Xs, Bs, h, n_valid=20_000))
     assert torch.equal(C1, solver.update_codebooks(X, Bt, h))
+
+
+@pytest.mark.parametrize("case", kernel_cases.CASES, ids=[c.name for c in kernel_cases.CASES])
+def test_kernel_case_on_the_card(cuda, case):
+    """Every case of the catalogue: the kernel launches and gives its plain
+    version's outputs."""
+    bad, launched = kernel_cases.run_case(case, cuda)
+    assert bad is None and launched > 0
+
+
+@pytest.mark.parametrize("fill", ["zero", "ones", "nan"])
+def test_kernel_cases_do_not_depend_on_memory_they_did_not_write(cuda, fill):
+    """Every case with the allocator's free memory and a tail behind every
+    input filled with 0x00 or 0xFF bytes, or in deterministic mode with
+    every empty tensor filled: the outputs stay the plain versions'."""
+    try:
+        torch.use_deterministic_algorithms(fill == "nan")
+        for case in kernel_cases.CASES:
+            bad, _ = kernel_cases.run_case(case, cuda, fill)
+            assert bad is None, f"{case.name}: {bad}"
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+
+def test_kernel_cases_under_memcheck(cuda):
+    """The catalogue under compute-sanitizer's memcheck, where the toolkit
+    has it and it can instrument the card: 0 errors and the pass line."""
+    if _build.sanitizer() is None:
+        pytest.skip("compute-sanitizer not found in " + ", ".join(_build.sanitizer_paths()))
+    res = kernel_cases.sanitize("memcheck")
+    if res["refused"]:
+        pytest.skip(f"compute-sanitizer cannot instrument this card: {res['refused']}")
+    assert res["ok"], res["tail"]
