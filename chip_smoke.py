@@ -1442,6 +1442,15 @@ def read_counters() -> dict:
     return launch_counts.read()
 
 
+def reruns_since(before: dict) -> dict:
+    """The queries each certificate reran since `before` (a `read_counters()`),
+    by certificate: "warm", "widen", "tournament". A difference, so the
+    path's launch counts run on."""
+    after = read_counters()
+    return {key: after[f"rerun_{key}"] - before[f"rerun_{key}"]
+            for key in ("warm", "widen", "tournament")}
+
+
 class Env:
     """Set environment variables for a block, then restore them."""
 
@@ -1476,13 +1485,12 @@ def search_route(torch, idx, Q, k, env, method, precision="f32", refine=None, me
 
     with Env(**env):
         run()
-        for key in adc.RERUNS:
-            adc.RERUNS[key] = 0
+        before = read_counters()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         res = run()
         torch.cuda.synchronize()
-        return res, time.perf_counter() - t0, dict(adc.RERUNS)
+        return res, time.perf_counter() - t0, reruns_since(before)
 
 
 IVF_NLIST = 1024
@@ -1844,14 +1852,12 @@ def cli_replay(torch, idx, batches, served_lat, big, served_key, mutation):
     in this process: every response's ids and distances must be the served
     ones bit for bit (same code, same card). A check of parity only: the
     path's launches are the servers' own counts."""
-    from local_search_quantization_torch.ops import adc
     from local_search_quantization_torch.ops.select_kernels import scan_topk
 
     rows, added, gone, q0, served_after = mutation
     torch.cuda.synchronize()
     failed = scan_topk.failed
-    for key in adc.RERUNS:
-        adc.RERUNS[key] = 0
+    before = read_counters()
     ms, same = [], True
     for Q, resp in zip(batches, served_lat):
         (ids, dists), t = timed_search(torch, idx, Q, k=100)
@@ -1861,7 +1867,7 @@ def cli_replay(torch, idx, batches, served_lat, big, served_key, mutation):
     print_latency("in this process (Index.search + fetch)", batches, ms)
     print(f"path E replay latency: ids and dists identical to the served JSON {same}; "
           f"queries rerun after a failed K2 certificate {scan_topk.failed - failed}, reruns "
-          f"{adc.RERUNS}")
+          f"{reruns_since(before)}")
     check(same, "path E: a served latency response differs from Index.search")
     for name, (kw, Q, resp, _) in big.items():
         (ids, dists), t_first = timed_search(torch, idx, Q, **kw)
@@ -1884,7 +1890,7 @@ def cli_replay(torch, idx, batches, served_lat, big, served_key, mutation):
     idx.compact()
     torch.cuda.synchronize()
     print(f"path E replay: key route identical to the key server; add, delete, the query "
-          f"after it and compact as served; reruns {dict(adc.RERUNS)}")
+          f"after it and compact as served; reruns {reruns_since(before)}")
 
 
 def served_counts(label: str, launches: dict, kernels) -> dict:

@@ -34,9 +34,10 @@ import sys
 import numpy as np
 import torch
 
-from local_search_quantization_torch.ops import adc
+from local_search_quantization_torch.ops import adc, launch_counts
 from local_search_quantization_torch.utils import checkpoint as ckpt
 from local_search_quantization_torch.utils.device import encode_in_chunks, entry_device
+from local_search_quantization_torch.utils.profiling import span
 
 _METHODS = ("pq", "opq", "chainq", "lsq", "rvq")
 _ENCODE_CHUNK = 1 << 16
@@ -50,6 +51,7 @@ def _scan_cache_enabled(n: int, device) -> bool:
 
 
 def _host(x) -> np.ndarray:
+    launch_counts.sync(x)  # a card tensor's copy to the host waits on the card
     return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
 
 
@@ -455,6 +457,7 @@ class Index:
     def _queries(self, Q) -> torch.Tensor:
         Q = torch.as_tensor(Q if isinstance(Q, torch.Tensor)
                             else np.asarray(Q, np.float32))
+        launch_counts.copy(Q, self.device)
         return Q.to(self.device, torch.float32)
 
     def _query_luts(self, Q) -> torch.Tensor:
@@ -462,11 +465,12 @@ class Index:
         for pq/opq over rotated queries; -2<q,c> inner-product LUTs for the
         additive methods, norms carried separately)."""
         Q, model = self._queries(Q), self.model
-        if self.additive:
-            return adc.lsq_query_luts(Q @ model.R if self.method == "chainq" else Q,
-                                      model.C)
-        return adc.pq_query_luts(Q @ model.R if self.method == "opq" else Q,
-                                 model.C_sub)
+        with span("index.search.luts"):
+            if self.additive:
+                return adc.lsq_query_luts(Q @ model.R if self.method == "chainq" else Q,
+                                          model.C)
+            return adc.pq_query_luts(Q @ model.R if self.method == "opq" else Q,
+                                     model.C_sub)
 
     def _device_scan_state(self):
         """The codes uploaded once to the index's device (serving hot path),
@@ -584,6 +588,13 @@ class Index:
         Exhaustive scans only: with nprobe it raises. Results on the index's
         device.
         """
+        launch_counts.COUNTS["search_calls"] += 1
+        with span("index.search"):
+            return self._search(Q, k, mesh=mesh, nprobe=nprobe, refine=refine,
+                                precision=precision)
+
+    def _search(self, Q, k: int, *, mesh, nprobe, refine, precision) -> adc.KNNResult:
+        """`search` below its span: refine's first stage recurses here."""
         Q = self._queries(Q)
         if Q.ndim != 2 or Q.shape[1] != self.d:
             raise ValueError(f"queries must be [nq, {self.d}], got {tuple(Q.shape)}")
@@ -604,8 +615,8 @@ class Index:
             refine = int(refine)
             if refine < 1:
                 raise ValueError(f"refine must be >= 1, got {refine}")
-            cand = self.search(Q, min(refine * k, self.n), mesh=mesh, nprobe=nprobe,
-                               precision=precision)
+            cand = self._search(Q, min(refine * k, self.n), mesh=mesh, nprobe=nprobe,
+                                refine=None, precision=precision)
             # A +inf first-stage slot never reaches the re-ranker with a real
             # id: the exact distance would resurrect a tombstoned row.
             cand_ids = torch.where(torch.isfinite(cand.dists), cand.ids, -1)
@@ -625,7 +636,8 @@ class Index:
         if mesh is not None:
             from local_search_quantization_torch.parallel import query as pq_mod
 
-            state = self._mesh_scan_state(mesh)
+            with span("index.search.scan_state"):
+                state = self._mesh_scan_state(mesh)
             if self.additive:
                 res = pq_mod.sharded_linscan_lsq(
                     mesh, self.B, Q, model.C, self._dbn, k,
@@ -637,7 +649,8 @@ class Index:
                     R=model.R if self.method == "opq" else None, extra=self._extra,
                     precision=precision, device_state=state)
             return adc.KNNResult(res.dists.to(self.device), res.ids.to(self.device))
-        state = self._device_scan_state()
+        with span("index.search.scan_state"):
+            state = self._device_scan_state()
         if self.additive:
             R = model.R if self.method == "chainq" else None
             return adc.linscan_lsq(self.B, Q, model.C, self._dbn, k=k, R=R,
@@ -662,42 +675,47 @@ class Index:
         from local_search_quantization_torch.ops import icm, norms, viterbi
         from local_search_quantization_torch.utils.synth import random_codes
 
-        X = self._queries(X)
-        if X.ndim != 2 or X.shape[1] != self.d:
-            raise ValueError(f"vectors must be [n, {self.d}], got {tuple(X.shape)}")
-        nreal = X.shape[0]
-        model = self.model
-        if self.method == "pq":
-            Bn = _encode_chunked(lambda x: quantize_pq(x, model.C_sub), X, self.device)
-        elif self.method == "opq":
-            Bn = _encode_chunked(lambda x: quantize_opq(x, model.R, model.C_sub), X,
-                                 self.device)
-        elif self.method == "chainq":
-            Bn = _encode_chunked(lambda x: viterbi.viterbi_encode(x @ model.R, model.C),
-                                 X, self.device)
-        elif self.method == "rvq":
-            Bn = _encode_chunked(lambda x: quantize_rvq(x, model.C), X, self.device)
-        else:  # lsq
-            m, h = self.meta["m"], self.meta["h"]
-            seq = int(self.meta.get("add_seq", 0))
-            self.meta["add_seq"] = seq + 1
-            gen = torch.Generator(device=self.device).manual_seed(seq)
-            B0 = random_codes(seq, nreal, m, h)
-            kw = dict(ilsiter=self.meta.get("ilsiter") or 16, icmiter=4,
-                      npert=min(4, m), randord=True, condition_mode="auto")
-            if nreal > _ENCODE_CHUNK:
-                enc = icm.encode_chunked(gen, X, B0, model.C, **kw)
+        launch_counts.COUNTS["add_calls"] += 1
+        with span("index.add"):
+            X = self._queries(X)
+            if X.ndim != 2 or X.shape[1] != self.d:
+                raise ValueError(f"vectors must be [n, {self.d}], got {tuple(X.shape)}")
+            nreal = X.shape[0]
+            model = self.model
+            if self.method != "lsq":
+                fn = {"pq": lambda x: quantize_pq(x, model.C_sub),
+                      "opq": lambda x: quantize_opq(x, model.R, model.C_sub),
+                      "chainq": lambda x: viterbi.viterbi_encode(x @ model.R, model.C),
+                      "rvq": lambda x: quantize_rvq(x, model.C)}[self.method]
+                with span("index.add.encode"):
+                    Bn = _encode_chunked(fn, X, self.device)
             else:
-                enc = icm.ils_encode(gen, X, torch.as_tensor(B0), model.C, **kw)
-            Bn = _host(enc.B).astype(np.int32)
-        bn = None
-        if self.additive:
-            cbn = torch.as_tensor(self._cbnorms).to(self.device)
-            bn = _host(norms.quantize_norms(Bn, model.C, cbn))
-        n0 = self._append_rows(Bn, bn)
-        if self.refine is not None:
-            self.refine.append(X)  # frozen affine params
-        return list(range(n0, n0 + nreal))
+                m, h = self.meta["m"], self.meta["h"]
+                seq = int(self.meta.get("add_seq", 0))
+                self.meta["add_seq"] = seq + 1
+                gen = torch.Generator(device=self.device).manual_seed(seq)
+                with span("index.add.random_codes"):
+                    B0 = torch.as_tensor(random_codes(seq, nreal, m, h))
+                kw = dict(ilsiter=self.meta.get("ilsiter") or 16, icmiter=4,
+                          npert=min(4, m), randord=True, condition_mode="auto")
+                with span("index.add.encode"):
+                    if nreal > _ENCODE_CHUNK:
+                        enc = icm.encode_chunked(gen, X, B0, model.C, **kw)
+                    else:
+                        enc = icm.ils_encode(gen, X, B0, model.C, **kw)
+                with span("index.add.codes_to_host"):
+                    Bn = _host(enc.B).astype(np.int32)
+            bn = None
+            if self.additive:
+                with span("index.add.norms"):
+                    launch_counts.copy(self._cbnorms, self.device)
+                    cbn = torch.as_tensor(self._cbnorms).to(self.device)
+                    bn = _host(norms.quantize_norms(Bn, model.C, cbn))
+            with span("index.add.append"):
+                n0 = self._append_rows(Bn, bn)
+                if self.refine is not None:
+                    self.refine.append(X)  # frozen affine params
+            return list(range(n0, n0 + nreal))
 
     def delete(self, ids) -> int:
         """Tombstone rows in O(1): their distance term becomes +inf, so no

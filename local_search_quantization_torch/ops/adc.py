@@ -25,6 +25,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from local_search_quantization_torch.ops import launch_counts
 from local_search_quantization_torch.ops.select_kernels import (
     _sort_lex,
     fused_scan_topk,
@@ -35,8 +36,9 @@ from local_search_quantization_torch.ops.select_kernels import (
     scan_topk_warm_masked,
     select_variant,
 )
+from local_search_quantization_torch.utils.profiling import span
 
-__all__ = ["KNNResult", "RERUNS", "TIE_SLACK", "linscan_lsq", "linscan_opq",
+__all__ = ["KNNResult", "TIE_SLACK", "linscan_lsq", "linscan_opq",
            "linscan_pq", "lsq_query_luts", "lut_scan_block", "pq_query_luts",
            "prepare_device_codes", "scan_topk_routed"]
 
@@ -45,11 +47,6 @@ __all__ = ["KNNResult", "RERUNS", "TIE_SLACK", "linscan_lsq", "linscan_opq",
 # package writes 3e-5 in its certificate (adc.py:382) but gates its chip
 # check at 5e-5 (scripts/tpu_smoke.py:157); here both read this one value.
 TIE_SLACK = 3e-5
-
-# Queries rerun by each certificate since the counts were last zeroed: the
-# warm start of the kernel route ("warm": the queries that failed it, not the
-# batch), its deep-k widen ("widen") and the tournament ("tournament").
-RERUNS = {"warm": 0, "widen": 0, "tournament": 0}
 
 _METHODS = ("auto", "kernel", "native", "exact", "tournament", "twopass")
 
@@ -210,11 +207,17 @@ def prepare_device_codes(B, extra=None, *, base_block: int = 1 << 16,
     dtype = _code_dtype(B, h)
     pad = (-n) % base_block
     Bt = torch.zeros((m, n + pad), dtype=dtype, device=device)
+    launch_counts.copy(B, device)
     Bt[:, :n] = B.to(dtype).to(device).t()
     if extra is None and not pad:
         return Bt, None
     ex = torch.full((n + pad,), float("inf"), dtype=torch.float32, device=device)
-    ex[:n] = 0.0 if extra is None else torch.as_tensor(extra).to(device, torch.float32)
+    if extra is None:
+        ex[:n] = 0.0
+    else:
+        extra = torch.as_tensor(extra)
+        launch_counts.copy(extra, device)
+        ex[:n] = extra.to(device, torch.float32)
     return Bt, ex
 
 
@@ -306,13 +309,15 @@ def _run_scan(luts_fn, Q, B, *, k: int, extra=None, query_chunk: int = 256,
             raise ValueError("topk_method='native' needs the native library "
                              "(make -C native) and codes in [0, 256)")
         if native_ok:
-            luts = luts_fn(Q).cpu().numpy().astype(np.float32)
+            with span("index.search.luts"):
+                luts = luts_fn(Q).cpu().numpy().astype(np.float32)
             ex = None if extra is None else np.asarray(
                 extra.cpu() if isinstance(extra, torch.Tensor) else extra, np.float32)
             d, i = _nat.linscan(luts, Bn.astype(np.uint8, copy=False), ex, k)
             return KNNResult(torch.as_tensor(d).to(dev),
                              torch.as_tensor(i.astype(np.int32)).to(dev))
-    luts = luts_fn(Q).contiguous()
+    with span("index.search.luts"):
+        luts = luts_fn(Q).contiguous()
     if device_state is not None:
         Bj, extraj = device_state
     else:
@@ -360,16 +365,18 @@ def scan_topk_routed(luts: torch.Tensor, Bt: torch.Tensor, extra: torch.Tensor |
             d, i, rerun = rerun_uncertified(
                 luts, Bt, extra_arr, d, i, bad, k=k_req,
                 variant="sorted" if variant == "key" else variant, precision=precision)
-            RERUNS["warm"] += rerun
+            launch_counts.COUNTS["rerun_warm"] += rerun
         if widen:
             tied = (d[:, k - 1] == d[:, k]) & torch.isfinite(d[:, k - 1])
             d, i = d[:, :k].clone(), i[:, :k].clone()
-            tq = torch.nonzero(tied)[:, 0]
-            if tq.numel():
-                RERUNS["widen"] += tq.numel()
-                d2, i2 = fused_scan_topk(luts[tq], Bt, extra_arr, k=k,
-                                         variant="grouped", precision=precision)
-                d[tq], i[tq] = d2, i2
+            with span("k2.certify"):
+                launch_counts.sync(tied)
+                tq = torch.nonzero(tied)[:, 0]
+                if tq.numel():
+                    launch_counts.COUNTS["rerun_widen"] += tq.numel()
+                    d2, i2 = fused_scan_topk(luts[tq], Bt, extra_arr, k=k,
+                                             variant="grouped", precision=precision)
+                    d[tq], i[tq] = d2, i2
         return KNNResult(d, i)
 
     tournament = topk_method in ("tournament", "twopass") and 4 * k < Bt.shape[1]
@@ -382,12 +389,14 @@ def scan_topk_routed(luts: torch.Tensor, Bt: torch.Tensor, extra: torch.Tensor |
             (d, i), tied = _scan_topk_tournament(lc, Bt, extra, k, base_block,
                                                  mode=mode, store_dists=store,
                                                  certify=True)
-            tq = torch.nonzero(tied)[:, 0]
-            if tq.numel():
-                RERUNS["tournament"] += tq.numel()
-                fix = _scan_topk(lc[tq], Bt, extra, k, base_block, mode=mode)
-                d, i = d.clone(), i.clone()
-                d[tq], i[tq] = fix.dists, fix.ids
+            with span("k2.certify"):
+                launch_counts.sync(tied)
+                tq = torch.nonzero(tied)[:, 0]
+                if tq.numel():
+                    launch_counts.COUNTS["rerun_tournament"] += tq.numel()
+                    fix = _scan_topk(lc[tq], Bt, extra, k, base_block, mode=mode)
+                    d, i = d.clone(), i.clone()
+                    d[tq], i[tq] = fix.dists, fix.ids
         else:
             d, i = _scan_topk(lc, Bt, extra, k, base_block, mode=mode)
         out_d.append(d)

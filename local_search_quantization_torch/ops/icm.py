@@ -32,7 +32,9 @@ from typing import NamedTuple
 
 import torch
 
+from local_search_quantization_torch.ops import launch_counts
 from local_search_quantization_torch.ops.luts import get_binaries, get_unaries
+from local_search_quantization_torch.utils.profiling import span
 
 
 class ILSResult(NamedTuple):
@@ -202,6 +204,7 @@ def ils_encode(gen: torch.Generator, X: torch.Tensor, B0: torch.Tensor,
     dev = X.device
     m, h = C.shape[0], C.shape[1]
     condition_mode = encode_route(condition_mode, m, h, dev)
+    launch_counts.copy(B0, dev)
     B0 = B0.to(device=dev, dtype=torch.int32).contiguous()
     unaries = get_unaries(X, C)
     binaries = get_binaries(C)
@@ -332,13 +335,16 @@ def encode_chunked(gen: torch.Generator, X, B0, C: torch.Tensor, *,
     total = 0
     for start in range(0, n, chunk):
         stop = min(start + chunk, n)
-        xs = torch.as_tensor(X[start:stop]).to(dev, torch.float32)
-        bs = torch.as_tensor(B0[start:stop]).to(dev, torch.int32)
-        valid = stop - start
-        pad = chunk - valid if valid < chunk and start > 0 else 0
-        if pad:
-            xs = torch.cat([xs, xs[-1:].expand(pad, -1)])
-            bs = torch.cat([bs, bs[-1:].expand(pad, -1)])
+        with span("encode.chunk_inputs"):
+            xs, bs = torch.as_tensor(X[start:stop]), torch.as_tensor(B0[start:stop])
+            launch_counts.copy(xs, dev)
+            launch_counts.copy(bs, dev)
+            xs, bs = xs.to(dev, torch.float32), bs.to(dev, torch.int32)
+            valid = stop - start
+            pad = chunk - valid if valid < chunk and start > 0 else 0
+            if pad:
+                xs = torch.cat([xs, xs[-1:].expand(pad, -1)])
+                bs = torch.cat([bs, bs[-1:].expand(pad, -1)])
         res = ils_encode(gen, xs, bs, C, ilsiter=ilsiter, icmiter=icmiter,
                          npert=npert, randord=randord, condition_mode=mode,
                          milestones=milestones, with_stats=with_stats,

@@ -1,20 +1,60 @@
-"""The kernel wrappers' launch counters, read and reset together.
+"""The port's counters, read and reset together: kernel launches, certificate
+reruns, host syncs and entry-point calls.
 
-Each wrapper adds one to its counter where it launches its kernel (on a
-CUDA tensor) and nowhere else, so on the CPU every count stays 0. The
-server reports these at its end; a GPU run reads them around the work it
-drives.
+Each kernel wrapper adds one to its counter where it launches its kernel (on
+a CUDA tensor) and nowhere else, so on the CPU every launch count stays 0.
+The other counters live here (`COUNTS`; host syncs through `sync` and
+`copy`):
+
+- `host_syncs`: the sites on the `Index.add` and `Index.search` paths where
+  the host waits on the card (a `torch.nonzero`, a blocking copy between
+  host and card), counted only for CUDA tensors, like the launches;
+- `search_calls`, `add_calls`: calls of `Index.search` (the outer call where
+  refine recurses) and `Index.add`;
+- `rerun_warm`, `rerun_widen`, `rerun_tournament`: the queries rerun by the
+  kernel route's warm start, its deep-k widen and the tournament's tie
+  certificate (queries, not batches).
+
+The server reports these at its end; a GPU run reads them around the work it
+drives. This module imports the kernel modules only inside `zero` and `read`,
+so they can import it.
 """
 
 from __future__ import annotations
 
-from local_search_quantization_torch.ops import icm_kernels, select_kernels
+import torch
 
 _SELECT = ("scan_select", "scan_key", "k2_filter", "k2_select")
+
+COUNTS = {"host_syncs": 0, "search_calls": 0, "add_calls": 0, "rerun_warm": 0,
+          "rerun_widen": 0, "rerun_tournament": 0}
+
+
+def _is_cuda(where) -> bool:
+    if isinstance(where, torch.Tensor):
+        return where.is_cuda
+    return isinstance(where, (str, torch.device)) and torch.device(where).type == "cuda"
+
+
+def sync(where) -> None:
+    """Count one host sync at a site where the host waits on `where` (a
+    device, or a tensor on it): counted for CUDA only."""
+    if _is_cuda(where):
+        COUNTS["host_syncs"] += 1
+
+
+def copy(src, dst) -> None:
+    """Count the host sync of a blocking copy from `src` to `dst` (each a
+    device, a tensor or a host array): one where exactly one side is on a
+    CUDA device."""
+    if _is_cuda(src) != _is_cuda(dst):
+        COUNTS["host_syncs"] += 1
 
 
 def zero() -> None:
     """Every counter to 0."""
+    from local_search_quantization_torch.ops import icm_kernels, select_kernels
+
     icm_kernels.ils_encode_streamed.launches = 0
     icm_kernels.fused_icm_sweeps.launches.update(v2=0, v1=0)
     for v in icm_kernels.DISSECT_VARIANTS:
@@ -22,11 +62,16 @@ def zero() -> None:
     for name in _SELECT:
         getattr(select_kernels, name).launches = 0
     select_kernels.scan_topk.dense_launches = select_kernels.scan_topk.failed = 0
+    for key in COUNTS:
+        COUNTS[key] = 0
 
 
 def read() -> dict:
-    """{counter: launches}, one key a kernel (K7 also per variant under
-    "dissect"), with K2's stages and dense path beside their sum."""
+    """{counter: count}: one key a kernel (K7 also per variant under
+    "dissect"), with K2's stages and dense path beside their sum, then the
+    keys of `COUNTS`."""
+    from local_search_quantization_torch.ops import icm_kernels, select_kernels
+
     out = {"ils_encode": icm_kernels.ils_encode_streamed.launches,
            "icm_sweeps_v2": icm_kernels.fused_icm_sweeps.launches["v2"],
            "icm_sweeps_v1": icm_kernels.fused_icm_sweeps.launches["v1"],
@@ -41,4 +86,5 @@ def read() -> dict:
     # K2 launches its filter (and then its select) once a chunk of queries on
     # the staged path, its dense kernels once a launch on the dense path.
     out["scan_topk"] = out["k2_filter"] + out["scan_topk_dense"]
+    out.update(COUNTS)
     return out

@@ -9,6 +9,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from local_search_quantization_torch.ops import launch_counts
 from local_search_quantization_torch.ops.costs import reconstruct
 
 
@@ -70,7 +71,9 @@ def quantize_norms(B: torch.Tensor, C: torch.Tensor, cbnorms: torch.Tensor,
 
     Chunked over rows so the [n, d] reconstruction stays bounded.
     """
-    B = torch.as_tensor(B).to(C.device)
+    B = torch.as_tensor(B)
+    launch_counts.copy(B, C.device)
+    B = B.to(C.device)
     cbnorms = cbnorms.to(C.device)
     out = torch.empty((B.shape[0],), dtype=torch.int32, device=C.device)
     for s in range(0, B.shape[0], block):

@@ -46,6 +46,8 @@ import os
 import torch
 
 from local_search_quantization_torch import _build
+from local_search_quantization_torch.ops import launch_counts
+from local_search_quantization_torch.utils.profiling import span
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -266,10 +268,12 @@ def k2_staged(luts: torch.Tensor, Bt: torch.Tensor, extra: torch.Tensor | None,
         cand, count = filt(lq, Bt, extra, t0, cap)
         parts.append(select(cand, count, k, cap))
     d, i, ok = (torch.cat(p) for p in zip(*parts))
-    bad = torch.nonzero(~ok)[:, 0]
-    for b0 in range(0, bad.numel(), _DENSE_QUERIES):
-        sel = bad[b0:b0 + _DENSE_QUERIES]
-        d[sel], i[sel] = dense(luts[sel], Bt, extra, k)
+    with span("k2.certify"):
+        launch_counts.sync(ok)
+        bad = torch.nonzero(~ok)[:, 0]
+        for b0 in range(0, bad.numel(), _DENSE_QUERIES):
+            sel = bad[b0:b0 + _DENSE_QUERIES]
+            d[sel], i[sel] = dense(luts[sel], Bt, extra, k)
     return d, i, bad.numel()
 
 
@@ -1087,11 +1091,13 @@ def rerun_uncertified(luts: torch.Tensor, Bt: torch.Tensor, extra: torch.Tensor 
     """Rerun cold, through `fused_scan_topk(variant=...)`, the queries that
     `bad` [nq] marks, and put their rows into copies of (d, i). One host sync
     reads the mask. Returns (dists, ids, number of queries rerun)."""
-    rows = torch.nonzero(bad)[:, 0]
-    if rows.numel() == 0:
-        return d, i, 0
-    d2, i2 = fused_scan_topk(luts[rows].contiguous(), Bt, extra, k=k, variant=variant,
-                             precision=precision)
-    d, i = d.clone(), i.clone()
-    d[rows], i[rows] = d2, i2
+    with span("k2.certify"):
+        launch_counts.sync(bad)
+        rows = torch.nonzero(bad)[:, 0]
+        if rows.numel() == 0:
+            return d, i, 0
+        d2, i2 = fused_scan_topk(luts[rows].contiguous(), Bt, extra, k=k, variant=variant,
+                                 precision=precision)
+        d, i = d.clone(), i.clone()
+        d[rows], i[rows] = d2, i2
     return d, i, rows.numel()

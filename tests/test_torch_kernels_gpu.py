@@ -584,9 +584,9 @@ def test_k4_shape_rules_mirror_the_library(cuda):
 def test_key_route_reruns_only_the_failing_queries_on_the_card(cuda, monkeypatch):
     """Tables of zeros and ones have few distinct distances, so some of their
     queries tie with the warm bound and fail the key certificate;
-    unit-normal tables pass: the route's ids are K2's, and RERUNS["warm"]
-    counts the failing queries alone."""
-    from local_search_quantization_torch.ops import adc
+    unit-normal tables pass: the route's ids are K2's, and the "rerun_warm"
+    counter counts the failing queries alone."""
+    from local_search_quantization_torch.ops import adc, launch_counts
 
     gen = torch.Generator(device=cuda).manual_seed(5)
     n = 1 << 17
@@ -603,9 +603,10 @@ def test_key_route_reruns_only_the_failing_queries_on_the_card(cuda, monkeypatch
     Bt = B.t().to(torch.uint8).contiguous()
     failing = int(sk.scan_topk_warm_masked(luts, Bt, None, k=1000, variant="key")[2].sum())
     assert 0 < failing <= 10
-    before, launches = adc.RERUNS["warm"], scan_key.launches
+    before, launches = launch_counts.read()["rerun_warm"], scan_key.launches
     res = run("key")
-    assert adc.RERUNS["warm"] - before == failing and scan_key.launches == launches + 1
+    assert (launch_counts.read()["rerun_warm"] - before == failing
+            and scan_key.launches == launches + 1)
     want = run("grouped")
     assert torch.equal(res.ids, want.ids) and torch.equal(res.dists, want.dists)
 
@@ -889,3 +890,59 @@ def test_kernel_cases_under_memcheck(cuda):
     if res["refused"]:
         pytest.skip(f"compute-sanitizer cannot instrument this card: {res['refused']}")
     assert res["ok"], res["tail"]
+
+
+@pytest.fixture(scope="module")
+def sync_index():
+    """An LSQ index of 2^17 rows at m=7, h=256 on the card (K2's staged path
+    takes n >= 65,536), 1,000 queries and 2^17 rows to add."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from local_search_quantization_torch.index import Index
+
+    rng = np.random.default_rng(3)
+    xt, xb, q, xa = (rng.normal(size=(n, 32)).astype(np.float32)
+                     for n in (4000, 1 << 17, 1000, 1 << 17))
+    idx = Index.build(xt, xb, "lsq", m=7, h=256, niter=2, ilsiter=4, device="cuda")
+    return idx, torch.as_tensor(q, device="cuda"), torch.as_tensor(xa, device="cuda")
+
+
+@pytest.mark.parametrize("call", ["search_k10", "search_k1000", "search_upload", "add"])
+def test_host_syncs_count_every_sync_the_card_flags(cuda, sync_index, call):
+    """Under `torch.cuda.set_sync_debug_mode("warn")` one call raises the
+    `host_syncs` counter by exactly the number of syncs the card flags: a
+    search at k=10 and at k=1000 (K2's certificate), one that uploads the
+    scan state again, and an add of 2^17 rows (K1's inputs, the codes and
+    the norms). Each call runs once before, so nothing is built in it."""
+    import warnings
+
+    from local_search_quantization_torch.ops import launch_counts
+
+    idx, Q, X = sync_index
+
+    def run():
+        if call == "add":
+            return idx.add(X)
+        if call == "search_upload":
+            idx._scan_ver += 1  # as a mutation does: the next search uploads
+        return idx.search(Q, k=10 if call == "search_k10" else 1000)
+
+    run()
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True):
+        # A process's first switch of the mode may itself sync, in torch.
+        torch.cuda.set_sync_debug_mode("warn")
+        torch.cuda.set_sync_debug_mode("default")
+    launch_counts.zero()
+    with warnings.catch_warnings(record=True) as got:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            run()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    flagged = [f"{w.filename}:{w.lineno}" for w in got if "synchroniz" in str(w.message)]
+    counts = launch_counts.read()
+    assert counts["host_syncs"] == len(flagged), flagged
+    assert counts["add_calls" if call == "add" else "search_calls"] == 1
+    assert len(flagged) >= 1

@@ -38,7 +38,7 @@ from local_search_quantization_tpu.parallel import encode as jencode
 from local_search_quantization_tpu.parallel import query as jquery
 from local_search_quantization_tpu.parallel.mesh import shard_cols as jshard_cols
 from local_search_quantization_torch.index import Index as TIndex
-from local_search_quantization_torch.ops import adc, costs, solver
+from local_search_quantization_torch.ops import adc, costs, launch_counts, solver
 from local_search_quantization_torch.parallel import data_mesh, shard_batch
 from local_search_quantization_torch.parallel.encode import (
     make_lsq_train_step,
@@ -408,10 +408,10 @@ def test_mesh_deep_k_widen_lex_parity(rng, jmesh, tmesh, monkeypatch):
     n, nq, d, m, h, k = 4096, 5, 8, 2, 2, 50
     C, B, Q, dbn = _lsq_case(rng, n, nq, d, m, h)
     oracle, full = _lex_oracle(adc.lsq_query_luts(_t(Q), _t(C)).numpy(), B, dbn, k)
-    reruns = adc.RERUNS["widen"]
+    reruns = launch_counts.read()["rerun_widen"]
     multi = sharded_linscan_lsq(tmesh, B, Q, _t(C), dbn, k, query_chunk=8, block=256,
                                 method="kernel")
-    assert adc.RERUNS["widen"] > reruns  # the certificate fired and reran
+    assert launch_counts.read()["rerun_widen"] > reruns  # the certificate fired and reran
     np.testing.assert_array_equal(multi.ids.numpy(), oracle)
     np.testing.assert_allclose(multi.dists.numpy(), np.take_along_axis(full, oracle, 1),
                                rtol=1e-4, atol=1e-4)

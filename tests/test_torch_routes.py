@@ -19,6 +19,7 @@ import torch
 from local_search_quantization_tpu.ops import adc as jadc
 from local_search_quantization_tpu.utils import native as jnative
 from local_search_quantization_torch.ops import adc as tadc
+from local_search_quantization_torch.ops import launch_counts
 from local_search_quantization_torch.utils import native as tnative
 
 torch.set_num_threads(2)
@@ -135,12 +136,12 @@ def test_stale_device_state_raises_the_same_error(case):
 
 def test_tournament_certificate_reruns_tied_queries_and_counts_them(case):
     """Tie-heavy data: the certificate flags queries and their exact rerun
-    keeps the answer lexicographic (RERUNS counts them)."""
+    keeps the answer lexicographic (`launch_counts` counts them)."""
     luts, B, extra, Q = case
-    before = tadc.RERUNS["tournament"]
+    before = launch_counts.read()["rerun_tournament"]
     res = tadc._run_scan(lambda q: _t(luts)[q[:, 0].long()], _t(Q), B, k=K,
                          extra=extra, base_block=512, topk_method="tournament")
-    assert tadc.RERUNS["tournament"] > before
+    assert launch_counts.read()["rerun_tournament"] > before
     want = tadc._run_scan(lambda q: _t(luts)[q[:, 0].long()], _t(Q), B, k=K,
                           extra=extra, base_block=512, topk_method="exact")
     assert torch.equal(res.ids, want.ids) and torch.equal(res.dists, want.dists)

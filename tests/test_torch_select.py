@@ -431,10 +431,11 @@ def test_key_variant_certifies_each_query_on_its_own():
 @pytest.mark.parametrize("variant,failing", [("key", 3), ("sorted", 3), ("grouped", 0)])
 def test_kernel_route_reruns_only_the_queries_that_fail(monkeypatch, variant, failing):
     """The "key" route returns the ids of the "sorted" and the default
-    routes, and RERUNS["warm"] counts the queries that failed their
+    routes, and the "rerun_warm" counter counts the queries that failed their
     certificate (the three whose k-th distance ties with the bound), not the
     batch."""
     from local_search_quantization_torch.ops import adc as tadc
+    from local_search_quantization_torch.ops import launch_counts
 
     luts, B, extra = _mixed_key_case()
     Q = torch.arange(6, dtype=torch.float32)[:, None]
@@ -444,9 +445,9 @@ def test_kernel_route_reruns_only_the_queries_that_fail(monkeypatch, variant, fa
         return tadc._run_scan(lambda q: _t(luts)[q[:, 0].long()], Q, B, k=512,
                               extra=extra, topk_method="kernel")
 
-    before = tadc.RERUNS["warm"]
+    before = launch_counts.read()["rerun_warm"]
     res = run(variant)
-    assert tadc.RERUNS["warm"] - before == failing
+    assert launch_counts.read()["rerun_warm"] - before == failing
     want = run("grouped")
     assert torch.equal(res.ids, want.ids) and torch.equal(res.dists, want.dists)
 

@@ -104,11 +104,15 @@ def test_twins_run_as_files_from_a_non_repo_cwd(tmp_path):
     assert ready["ready"] and np.shape(r1["ids"]) == (1, 3)
     assert "device cpu" in served.stderr
     # At EOF the server's last stderr note counts its requests' kernel
-    # launches: none on the CPU, where every wrapper runs its plain version.
+    # launches and host syncs: none on the CPU, where every wrapper runs its
+    # plain version; the one request made one search.
     launches = served_launches(served.stderr)
     assert {"ils_encode", "scan_topk", "scan_select", "scan_key"} <= set(launches)
     assert served.stderr.splitlines()[-1].startswith(LAUNCHES_NOTE)
-    assert not any(v for v in launches.values() if isinstance(v, int)), launches
+    calls = {"search_calls": 1, "add_calls": 0}
+    assert not any(v for k, v in launches.items() if isinstance(v, int) and k not in calls), \
+        launches
+    assert {k: launches[k] for k in calls} == calls, launches
     table = str(tmp_path / "recall.json")
     subprocess.run([sys.executable, os.path.join(SCRIPTS, "eval_index.py"), "--index",
                     out, "--nquery", "50", "--knn", "20", "--device", "cpu", "--out",
