@@ -53,11 +53,14 @@ nothing of JAX. Phases:
    plain version and to K3 "sorted", with no query failing its certificate
    (the dense path idle); at nq=1000 `k2_filter` (counts, key sets) and
    `k2_select` (dists, ids, certificate) against their plain versions; its
-   time beside the dense path's (PR 1's K2) in the same run, the split into
+   time beside the dense path's (identical to the plain version, with the
+   bound of the bytes it moves) in the same run, the split into
    pre-scan, `k2_filter` and `k2_select`, peak memory, the bounds, and
    `torch.topk` over the materialised distances (the select half only, as
    a yardstick). Then the staged and the dense path at n = 16k, 32k and
    64k rows, identical and timed side by side (the staged path's floor);
+   then the dense path alone at the shape of a 10M-row search's reruns (21
+   queries over 10M rows, k=10): identical, timed beside its bytes' bound;
 3b. K3 (the streamed select) on K2's inputs: "sorted" cold, "unsorted" cold
    and "sorted" with the warm bound t0 of `scan_topk_warm`, against its
    plain version (dists on every row; ids on every row for "sorted", on the
@@ -279,6 +282,15 @@ def scan_bound(nq, n, k, code_bytes, lut_bytes=4, out_bytes=8):
     and extra read once; the [nq, k] output written once."""
     return roofline_ms(nq * n * (M + 1), nq * M * H * lut_bytes + M * n * code_bytes
                        + 4 * n + nq * k * out_bytes)
+
+
+def dense_bound(nq, n, code_bytes):
+    """K2's dense path as built: the [nq, n] f32 scratch written once and read
+    by three digit passes and the collect; the codes and extra read once a
+    scan block's 4 queries; the LUTs read once (bytes; the [nq, k] output
+    is small beside them)."""
+    return roofline_ms(nq * n * (M + 1), 5 * 4 * nq * n + -(-nq // 4) * n * (M * code_bytes + 4)
+                       + nq * M * H * 4)
 
 
 def icm_bound(n, visits_per_row, table_bytes, extra_bytes):
@@ -897,6 +909,7 @@ def phase_k2(torch, C, data, dev):
           f"for {K2_QUERIES} queries")
     phase_k2_grid(torch, luts, Bt8, Bt32, extra, want)
     phase_k2_small_n(torch, luts, Bt8, extra)
+    phase_k2_rerun(torch, C, luts, gen, dev)
     return ((err, times["uint8"], plain, *scan_bound(K2_QUERIES, K2_N, K, 1)),
             (luts, Bt8, extra, want))
 
@@ -943,11 +956,16 @@ def phase_k2_grid(torch, luts, Bt8, Bt32, extra, want1000):
                 filter=cuda_ms(torch, lambda: sk.k2_filter(lq, Bt8, extra, t0, cap), 5),
                 select=cuda_ms(torch, lambda: sk.k2_select(cand, count, k, cap), 5))
             mem_dense = peak_gib(torch, lambda: sk.scan_topk_dense(lq, Bt8, extra, k))
+            dd, di = sk.scan_topk_dense(lq, Bt8, extra, k)
+            torch.cuda.synchronize()
+            check(torch.equal(dd, want[0][:nq]) and torch.equal(di, want[1][:nq]),
+                  f"K2's dense path at nq={nq}, k={k} disagrees with its plain version")
             bound, by = scan_bound(nq, K2_N, k, 1)
             smem = nq * K2_N * M / SMEM_LOOKUPS * 1e3
             print(f"[{CARD}] K2 nq={nq} k={k}: {ms['k2']:.3f} ms (pre-scan "
                   f"{ms['pre']:.3f}, filter {ms['filter']:.3f}, select "
-                  f"{ms['select']:.3f}); dense path {ms['dense']:.3f} ms; K3 sorted "
+                  f"{ms['select']:.3f}); dense path {ms['dense']:.3f} ms (its bytes' "
+                  f"bound {dense_bound(nq, K2_N, 1)[0]:.3f} ms, identical); K3 sorted "
                   f"{ms['k3']:.3f} ms; cap {cap}, appended min/mean/max "
                   f"{int(count.min())}/{float(count.float().mean()):.1f}/"
                   f"{int(count.max())}, failed the certificate 0; peak "
@@ -962,6 +980,41 @@ def phase_k2_grid(torch, luts, Bt8, Bt32, extra, want1000):
         print(f"[{CARD}] torch.topk(dist[{nq}, {K2_N}], {k}, largest=False), the "
               f"select half only: {cuda_ms(torch, lambda: torch.topk(dq, k, dim=1, largest=False), 3):.3f} ms")
     del dist
+
+
+def phase_k2_rerun(torch, C, luts, gen, dev):
+    """K2's dense path at the shape of a certificate's reruns in a 10M-row
+    search at k=10: 21 queries over 10M rows of uint8 codes (each row cut
+    into segments, `select_kernels.dense_segments`), identical to its plain
+    version, its time beside the bound of the bytes it moves, and its
+    launches."""
+    from local_search_quantization_torch.ops.norms import reconstruction_sqnorms
+    from local_search_quantization_torch.ops import select_kernels as sk
+
+    n, nq, k = 10_000_000, 21, 10
+    B = torch.randint(0, H, (n, M), generator=gen, device=dev, dtype=torch.int32)
+    extra = torch.cat([reconstruction_sqnorms(B[s:s + (1 << 17)], C)
+                       for s in range(0, n, 1 << 17)])
+    Bt = B.t().to(torch.uint8).contiguous()
+    del B
+    lq = luts[:nq].contiguous()
+    want = sk.scan_topk_reference(lq, Bt, extra, k)
+    launches = sk.scan_topk.dense_launches
+    d, i = sk.scan_topk_dense(lq, Bt, extra, k)
+    torch.cuda.synchronize()
+    check(torch.equal(d, want[0]) and torch.equal(i, want[1]) and
+          sk.scan_topk.dense_launches == launches + 1,
+          f"K2's dense path at nq={nq}, n={n}, k={k} disagrees with its plain version")
+    ms = cuda_ms(torch, lambda: sk.scan_topk_dense(lq, Bt, extra, k), 10)
+    plain = cuda_ms(torch, lambda: sk.scan_topk_reference(lq, Bt, extra, k), 1)
+    bound, by = dense_bound(nq, n, 1)
+    segs, rows = sk.dense_segments(n, nq, torch.cuda.get_device_properties(dev)
+                                   .multi_processor_count)
+    print(f"[{CARD}] K2 dense path, nq={nq}, n={n}, k={k}, uint8 codes: {ms:.3f} ms "
+          f"(plain {plain:.3f} ms), {segs} segments of {rows} rows a query, bound "
+          f"{bound:.3f} ms ({by}: {5 * 4 * nq * n / 1e9:.2f} GB of scratch); identical to "
+          f"the plain version")
+    del Bt, extra
 
 
 def check_k2_stages(torch, luts, Bt, extra, t0, cap, k, cand, count):

@@ -52,9 +52,11 @@ from local_search_quantization_torch.utils.profiling import span
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 # K2's dense path: distance scratch per launch, at most this many f32
-# elements (1 GiB), and at most this many queries a launch.
+# elements (1 GiB), and at most this many queries a launch; the rows a
+# select block loads at once (a segment is a whole number of them).
 _SCRATCH_ELEMS = 1 << 28
 _DENSE_QUERIES = 256
+_DENSE_TILE = 4096
 # K2's staged path (csrc/scan_topk.cu): rows a filter block stages at once,
 # the most keys a select block sorts, the fewest rows it takes, and the
 # candidate keys one chunk of queries may hold (128 MB).
@@ -283,9 +285,10 @@ def _k2_prescan(luts, Bt, extra, k):
 
 def scan_topk_dense(luts: torch.Tensor, Bt: torch.Tensor, extra: torch.Tensor | None,
                     k: int):
-    """K2's dense path on the card: adc_scan into a [q, n] f32 scratch and
-    radix_select, at most 256 queries a launch (fewer where the scratch
-    would pass 1 GiB). Same contract as `scan_topk`; the plain version is
+    """K2's dense path on the card: adc_scan into a [q, n] f32 scratch, then
+    a radix select on the (dist, id) key over `dense_segments`' row
+    segments, at most 256 queries a launch (fewer where the scratch would
+    pass 1 GiB). Same contract as `scan_topk`; the plain version is
     `scan_topk_reference`. Counts launches in `scan_topk.dense_launches`."""
     dev = _cuda_device("scan_topk_dense", luts)
     if dev is None:
@@ -303,20 +306,43 @@ def scan_topk_dense(luts: torch.Tensor, Bt: torch.Tensor, extra: torch.Tensor | 
         return out_d, out_i
     lib = _build.load("scan_topk")
     qb = max(1, min(nq, _DENSE_QUERIES, _SCRATCH_ELEMS // n))
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    chunks = [(q0, min(nq, q0 + qb)) for q0 in range(0, nq, qb)]
+    grids = {q1 - q0: dense_segments(n, q1 - q0, sms) for q0, q1 in chunks}
     dist = torch.empty((qb, n), dtype=torch.float32, device=dev)
-    lib.lsq_scan_topk.argtypes = [_P, _P, _I, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P]
+    work = torch.empty((max(dense_work_bytes(c, *g) for c, g in grids.items()) // 4,),
+                       dtype=torch.int32, device=dev)
+    lib.lsq_scan_topk.argtypes = [_P, _P, _I, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P]
     lib.lsq_scan_topk.restype = _I
     stream = torch.cuda.current_stream(dev).cuda_stream
-    for q0 in range(0, nq, qb):
-        q1 = min(nq, q0 + qb)
-        lq = luts[q0:q1]
+    for q0, q1 in chunks:
         err = lib.lsq_scan_topk(
-            lq.data_ptr(), Bt.data_ptr(), code_bytes, extra.data_ptr(), q1 - q0,
-            m, h, n, k, dist.data_ptr(), out_d[q0:q1].data_ptr(),
-            out_i[q0:q1].data_ptr(), stream)
+            luts[q0:q1].data_ptr(), Bt.data_ptr(), code_bytes, extra.data_ptr(), q1 - q0,
+            m, h, n, k, grids[q1 - q0][1], dist.data_ptr(), work.data_ptr(),
+            out_d[q0:q1].data_ptr(), out_i[q0:q1].data_ptr(), stream)
         _build.check(lib, err, "scan_topk dense kernel launch")
         scan_topk.dense_launches += 1
     return _sort_lex(out_d, out_i)
+
+
+def dense_segments(n: int, nq: int, sms: int) -> tuple[int, int]:
+    """(segments, rows a segment) of the dense select's grid over n rows and
+    nq queries on a card of `sms` SMs: each segment a whole number of
+    `_DENSE_TILE`-row tiles, and at least ceil(2 * sms / nq) segments where
+    n holds that many tiles, so that the grid has >= 2 blocks an SM at any
+    nq; one segment a query at nq >= 2 * sms. `lsq_scan_topk` takes the
+    rows a segment and launches ceil(n / rows) segments, as counted here."""
+    tiles = -(-n // _DENSE_TILE)
+    per = max(1, tiles // -(-2 * sms // nq))
+    return -(-tiles // per), per * _DENSE_TILE
+
+
+def dense_work_bytes(nq: int, segments: int, rows: int) -> int:
+    """Bytes of the dense select's workspace over segments of `rows` rows: a
+    32-byte state and a 2048-bin histogram a query, a 1024-bin one a
+    (query, segment) and a tie count a (query, tile of a segment). Mirrors
+    `lsq_dense_work_bytes` of csrc/scan_topk.cu."""
+    return nq * (32 + 4 * 2048 + 4 * 1024 * segments + 4 * (rows // _DENSE_TILE))
 
 
 def k2_group(m: int, h: int, code_bytes: int) -> int:

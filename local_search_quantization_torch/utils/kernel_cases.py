@@ -16,8 +16,9 @@ ends:
   on and off;
 - the scans: a ragged base of 30,007 rows with deleted rows (+inf extra),
   uint8 and int32 codes, nq 1 and 33, k=1 and k >= n where the wrapper
-  takes it, K2's certificate failing for one query (the dense rerun), K4
-  with a cap that overflows, and the L2 probe.
+  takes it, K2's certificate failing for one query (the dense rerun), K2's
+  dense path with a tie block at the k-th distance across a segment edge,
+  K4 with a cap that overflows, and the L2 probe.
 
 The wrappers run on the card unless given `--device cpu`; on the CPU they
 take their plain versions, so only the plain halves run. The run stops with
@@ -233,6 +234,32 @@ def _k2_dense(label, n, nq, m, h, dtype, k, seed, deleted=_DELETED):
                 lambda a: sk.scan_topk(*a, k), lambda a: sk.scan_topk_reference(*a, k), _same)
 
 
+def _tie_edge_make(n, nq, m, h, edge, ties, seed):
+    """Tie-heavy scan inputs whose smallest distance is shared by the `ties`
+    rows from edge - ties // 2 on (same codes, extra -100; every other row's
+    extra is 50): the tie block straddles row `edge`."""
+    def make(dev):
+        lut, Bt, _ = _scan_data(dev, n, nq, m, h, seed, 0)
+        lo = edge - ties // 2
+        Bt[:, lo:lo + ties] = Bt[:, lo:lo + 1]
+        extra = torch.full((n,), 50.0, device=dev)
+        extra[lo:lo + ties] = -100.0
+        return lut, Bt.to(torch.uint8).contiguous(), extra
+    return make
+
+
+def _k2_dense_tie_edge():
+    """Few queries over one-tile segments (`sk.dense_segments`: 4096 rows
+    each here), k inside a tie block that straddles the edge at row 4096:
+    the lowest ids of the block, across the edge."""
+    k = 9
+    return Case(f"K2 dense n={_N} nq=3 uint8 k={k}, a tie block across a segment edge",
+                ("lsq_scan_topk",), {"code_bytes": 1},
+                _tie_edge_make(_N, 3, 7, 256, sk._DENSE_TILE, 12, 44),
+                lambda a: sk.scan_topk_dense(*a, k), lambda a: sk.scan_topk_reference(*a, k),
+                _same)
+
+
 def _sorted_keys(cand, count, cap, q):
     f = min(int(count[q]), cap)
     return torch.sort(cand[q, :f] ^ sk._SIGN64).values ^ sk._SIGN64
@@ -423,6 +450,7 @@ CASES: tuple[Case, ...] = (
     _k2_dense("n=30007 nq=1 uint8 k=40000 (k >= n)", _N, 1, 7, 256, torch.uint8, 40_000, 23),
     _k2_dense("m=3 h=300 n=1000 nq=2 int32 k=1000 (k == n)", 1000, 2, 3, 300, torch.int32,
               1000, 24, 0),
+    _k2_dense_tie_edge(),
     _k2_filter("n=30007 nq=33 uint8 rank=700 cap=1024", 33, torch.uint8, 700, 1024, 25),
     _k2_filter("n=30007 nq=33 int32 rank=700 cap=256 (overflow)", 33, torch.int32, 700, 256,
                26),
@@ -516,8 +544,9 @@ def run_case(case: Case, dev, fill: str = "none") -> tuple[str | None, int]:
 
 # The port's kernels by a part of their mangled names: the sanitizer checks
 # these and no kernel of PyTorch's.
-SANITIZED_KERNELS = ("ils_kernel", "icm_sweeps_kernel", "adc_scan", "radix_select",
-                     "k2_filter", "k2_select", "scan_select", "scan_key", "l2_gather_kernel")
+SANITIZED_KERNELS = ("ils_kernel", "icm_sweeps_kernel", "adc_scan", "dense_hist",
+                     "dense_collect", "dense_tie_count", "dense_tie_take", "k2_filter",
+                     "k2_select", "scan_select", "scan_key", "l2_gather_kernel")
 SANITIZER_TOOLS = ("memcheck", "racecheck", "initcheck", "synccheck")
 # What the sanitizer prints where it cannot instrument the card.
 SANITIZER_REFUSAL = "Device not supported"

@@ -148,6 +148,39 @@ def test_k2_shape_rules():
     assert sk.k2_group(64, 256, 1) == 0
 
 
+@pytest.mark.parametrize("sms", [132, 114, 7])
+def test_dense_segments_fill_the_card_and_cover_every_row_once(sms):
+    """The dense select's grid (`dense_segments`, `k2_filter`'s rule for its
+    row segments): whole tiles; every row in exactly one segment; at least
+    2 blocks an SM for nq < 2 * SMs wherever the rows hold that many tiles,
+    else one tile a segment; one segment a query at nq >= 2 * SMs."""
+    tile = sk._DENSE_TILE
+    for n in (1, 4095, 4096, 30_007, 65_537, 1 << 20, (1 << 22) + 13, 10_000_000):
+        tiles = -(-n // tile)
+        for nq in (1, 2, 3, 21, 26, 131, 2 * sms - 1, 2 * sms, 256, 300, 5000):
+            segs, rows = sk.dense_segments(n, nq, sms)
+            assert rows >= tile and rows % tile == 0, (n, nq)
+            owner = np.r_[np.arange(0, n, 97), n - 1] // rows  # sampled rows' segments
+            assert owner.max() == segs - 1 and (segs - 1) * rows < n <= segs * rows, (n, nq)
+            if nq >= 2 * sms:
+                assert segs == 1, (n, nq)
+            elif tiles >= -(-2 * sms // nq):
+                assert segs * nq >= 2 * sms, (n, nq)
+            else:
+                assert (segs, rows) == (tiles, tile), (n, nq)
+
+
+def test_dense_work_bytes():
+    """A 32-byte state and a 2048-bin histogram a query, a 1024-bin
+    histogram a (query, segment) and a tie count a (query, tile of a
+    segment), in 4-byte words."""
+    tile = sk._DENSE_TILE
+    assert sk.dense_work_bytes(1, 1, tile) == 32 + 8192 + 4096 + 4
+    assert sk.dense_work_bytes(21, 14, 187 * tile) == 21 * (32 + 8192 + 14 * 4096 + 187 * 4)
+    assert all(sk.dense_work_bytes(q, *sk.dense_segments(n, q, 132)) % 4 == 0
+               for q in (1, 7, 256) for n in (5, 1 << 20))
+
+
 def test_k2_wrappers_take_the_plain_version_on_the_cpu_only():
     luts, Bt, extra = _t(*_case(3000, 2, 3, 16, seed=6))
     counts = (sk.scan_topk.dense_launches, sk.k2_filter.launches, sk.k2_select.launches)

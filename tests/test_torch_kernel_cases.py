@@ -138,7 +138,7 @@ def test_sanitizer_filter_names_every_kernel_in_csrc():
             with open(os.path.join(_CSRC, name)) as f:
                 kernels |= set(re.findall(r"__global__\s+void\s+(?:__launch_bounds__\(.*\)\s+)?"
                                           r"(\w+)\s*\(", f.read()))
-    assert len(kernels) == 9
+    assert len(kernels) == 12
     assert kernels == set(kc.SANITIZED_KERNELS)
 
 

@@ -254,6 +254,153 @@ def test_k2_continuous_distances_and_no_extra(cuda):
     torch.testing.assert_close(got[1], want[1], rtol=0, atol=0)
 
 
+# K2's dense path alone (`scan_topk_dense`): the shapes of a certificate's
+# reruns (few queries over many rows, each row cut into segments), one
+# segment a query, ties across segment edges, +inf rows and k == n.
+_RERUN_N = (1 << 22) + 13  # odd: no whole number of segments
+
+
+def _dense_same(lut, Bt, extra, k, want=None):
+    """scan_topk_dense bit for bit against the plain version, one launch a
+    chunk of queries."""
+    if want is None:
+        want = scan_topk_reference(lut, Bt, extra, k)
+    nq, n = lut.shape[0], Bt.shape[1]
+    qb = max(1, min(nq, sk._DENSE_QUERIES, sk._SCRATCH_ELEMS // n))
+    before = scan_topk.dense_launches
+    d, i = sk.scan_topk_dense(lut, Bt, extra, k)
+    assert scan_topk.dense_launches == before + -(-nq // qb)
+    assert torch.equal(d, want[0]) and torch.equal(i, want[1])
+
+
+@pytest.fixture(scope="module")
+def dense_rerun():
+    """26 queries over 2^22 + 13 rows, uint8 codes. Queries 0, 2, 4, ... each
+    have a planted block of 12 rows with one row's codes and extra, spread
+    over the base and lowered to the query's smallest distance, as the
+    near-duplicates of a corpus tie; the others are continuous. And the
+    plain answer at each k."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(19)
+    nq, n, m, h = 26, _RERUN_N, 7, 256
+    lut = rng.normal(size=(nq, m, h)).astype(np.float32)
+    B = rng.integers(0, h, (m, n), dtype=np.uint8)
+    extra = (rng.random(n) * 4).astype(np.float32)
+    for q in range(0, nq, 2):
+        rows = rng.choice(n, 12, replace=False)
+        B[:, rows] = B[:, rows[:1]]
+        extra[rows] = extra[rows[0]]
+        lut[q, np.arange(m), B[:, rows[0]]] -= 10.0
+    lut, Bt, extra = (torch.as_tensor(a, device=dev) for a in (lut, B, extra))
+    want = {k: scan_topk_reference(lut, Bt, extra, k) for k in (1, 10, 1000)}
+    return lut, Bt, extra, want
+
+
+@pytest.mark.parametrize("k", [1, 10, 1000])
+@pytest.mark.parametrize("nq", [1, 3, 21, 26])
+def test_k2_dense_at_the_rerun_shape(cuda, dense_rerun, nq, k):
+    lut, Bt, extra, want = dense_rerun
+    _dense_same(lut[:nq].contiguous(), Bt, extra, k, (want[k][0][:nq], want[k][1][:nq]))
+
+
+@pytest.mark.parametrize("n,k", [(65_537, 100), (65_537, 1000), (4000, 1000)])
+def test_k2_dense_many_queries(cuda, n, k):
+    """300 queries, launched as 256 and then 44: over 65,537 rows a few
+    segments a query (2 * SMs > 256), over one tile's 4000 rows one segment
+    a query."""
+    lut, Bt, extra = _k2_inputs(cuda, n, 300, 7, 256, seed=k)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    segs = sk.dense_segments(n, 256, sms)[0]
+    assert segs == 1 if n <= sk._DENSE_TILE else segs > 1
+    _dense_same(lut, Bt.to(torch.uint8).contiguous(), extra, k)
+
+
+@pytest.mark.parametrize("nq,k", [(1, 25), (3, 25), (21, 10)])
+def test_k2_dense_tie_block_across_segment_edges(cuda, nq, k):
+    """A block of 40 rows with one row's codes and extra, lowered below
+    every other row, from 5 rows before the first segment edge past the
+    middle of the base: the k-th distance is tied beyond the edge, and the
+    k lowest ids of the block are the answer."""
+    n = _RERUN_N
+    lut, Bt, extra = _k2_inputs(cuda, n, nq, 7, 256, seed=nq)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    rows = sk.dense_segments(n, nq, sms)[1]
+    edge = (n // 2 // rows + 1) * rows
+    Bt[:, edge - 5:edge + 35] = Bt[:, edge - 5:edge - 4]
+    extra[edge - 5:edge + 35] = -1000.0
+    want = scan_topk_reference(lut, Bt, extra, k)
+    assert torch.equal(want[1][:, -1], torch.full((nq,), edge - 5 + k - 1, device=cuda,
+                                                  dtype=torch.int32))
+    _dense_same(lut, Bt.to(torch.uint8).contiguous(), extra, k, want)
+
+
+@pytest.mark.parametrize("k", [1, 10, 1000])
+def test_k2_dense_all_rows_tied(cuda, k):
+    n, nq = (1 << 20) + 7, 3
+    lut = torch.zeros((nq, 7, 256), device=cuda)
+    Bt = torch.randint(0, 256, (7, n), device=cuda, dtype=torch.uint8)
+    extra = torch.full((n,), 2.5, device=cuda)
+    want = scan_topk_reference(lut, Bt, extra, k)
+    assert torch.equal(want[1], torch.arange(k, device=cuda, dtype=torch.int32).expand(nq, k))
+    _dense_same(lut, Bt, extra, k, want)
+
+
+@pytest.mark.parametrize("finite", [0, 500, 5000])
+def test_k2_dense_inf_rows(cuda, finite):
+    """+inf rows (deleted) everywhere but `finite` rows: at k=1000 the
+    finite rows, then (+inf, -1) slots where they are fewer than k."""
+    n, nq = (1 << 20) + 3, 5
+    lut, Bt, extra = _k2_inputs(cuda, n, nq, 7, 256, seed=finite)
+    keep = torch.randperm(n, device=cuda)[:finite]
+    extra = torch.where(torch.isin(torch.arange(n, device=cuda), keep), extra, float("inf"))
+    _dense_same(lut, Bt.to(torch.uint8).contiguous(), extra, 1000)
+
+
+@pytest.mark.parametrize("n,m,h,dtype", [(1000, 3, 300, torch.int32),
+                                         (4097, 7, 256, torch.uint8)])
+def test_k2_dense_k_equals_n(cuda, n, m, h, dtype):
+    lut, Bt, extra = _k2_inputs(cuda, n, 2, m, h, seed=n)
+    _dense_same(lut, Bt.to(dtype).contiguous(), extra, n)
+
+
+def test_k2_dense_makes_no_host_sync(cuda):
+    """`scan_topk_dense` under `torch.cuda.set_sync_debug_mode("error")`:
+    its digits are picked on the card, so the call never waits for it."""
+    import warnings
+
+    lut, Bt, extra = _k2_inputs(cuda, 300_000, 21, 7, 256, seed=8)
+    Bt = Bt.to(torch.uint8).contiguous()
+    want = scan_topk_reference(lut, Bt, extra, 10)
+    sk.scan_topk_dense(lut, Bt, extra, 10)  # builds the library
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True):
+        # A process's first switch of the mode may itself sync, in torch.
+        torch.cuda.set_sync_debug_mode("warn")
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        d, i = sk.scan_topk_dense(lut, Bt, extra, 10)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert torch.equal(d, want[0]) and torch.equal(i, want[1])
+
+
+def test_k2_dense_rules_mirror_the_library(cuda):
+    """The dense path's tile and workspace size in Python agree with
+    csrc/scan_topk.cu's."""
+    import ctypes
+
+    lib = _build.load("scan_topk")
+    lib.lsq_dense_work_bytes.argtypes = [ctypes.c_int] * 3
+    lib.lsq_dense_work_bytes.restype = ctypes.c_longlong
+    assert lib.lsq_dense_tile() == sk._DENSE_TILE
+    for nq, n in ((1, 4000), (1, 10_000_000), (21, 10_000_000), (256, 1 << 20)):
+        segs, rows = sk.dense_segments(n, nq, 132)
+        assert lib.lsq_dense_work_bytes(nq, segs, rows) == sk.dense_work_bytes(nq, segs, rows)
+
+
 def test_wrappers_reject_bad_inputs(cuda):
     lut, Bt, extra = _k2_inputs(cuda, 100, 2, 3, 16, seed=1)
     with pytest.raises(ValueError):
