@@ -538,7 +538,10 @@ class Index:
         """The probed scan, then the rows added since the partition was built
         scanned exhaustively and merged. A CUDA index scans on its device
         (`ivf.DeviceScan`; the tail through K2); a CPU index takes the native
-        scanner where it is built, else the numpy oracle. ids are int64."""
+        scanner where it is built, else the numpy oracle. ids are int64.
+        Spans: `index.search.ivf.probes` (the coarse probes),
+        `index.search.ivf.scan` (the probed scan), `index.search.ivf.tail`
+        (the tail and its merge, where there is a tail)."""
         from local_search_quantization_torch import ivf as ivf_mod
         from local_search_quantization_torch.ops.select_kernels import scan_topk
 
@@ -548,22 +551,30 @@ class Index:
         ntail = self.n - t0
         if self.device.type == "cuda":
             scan, tail = self._ivf_device_state()
-            res = scan.search(luts, k, scan.probes(Q, nprobe))
+            with span("index.search.ivf.probes"):
+                probes = scan.probes(Q, nprobe)
+            with span("index.search.ivf.scan"):
+                res = scan.search(luts, k, probes)
             if ntail == 0:
                 return res
-            d, i = scan_topk(luts, *tail, min(k, ntail))
-            tail_res = adc.KNNResult(d, torch.where(i >= 0, i.long() + t0, -1))
-            return ivf_mod.merge_knn_device(res, tail_res, k)
+            with span("index.search.ivf.tail"):
+                d, i = scan_topk(luts, *tail, min(k, ntail))
+                tail_res = adc.KNNResult(d, torch.where(i >= 0, i.long() + t0, -1))
+                return ivf_mod.merge_knn_device(res, tail_res, k)
         Qn, ln = Q.numpy(), luts.numpy()
-        res = ivf_mod.search(part, ln, k, ivf_mod.coarse_probes(Qn, part, nprobe))
+        with span("index.search.ivf.probes"):
+            probes = ivf_mod.coarse_probes(Qn, part, nprobe)
+        with span("index.search.ivf.scan"):
+            res = ivf_mod.search(part, ln, k, probes)
         if ntail:
-            # The tail reuses the grouped scan's LUTs: they already carry the
-            # method's rotation and norm semantics.
-            tail = ivf_mod.exhaustive_scan(ln, self.B[t0:], self._tail_extra(),
-                                           min(k, ntail))
-            tail = adc.KNNResult(tail.dists,
-                                 np.where(tail.ids >= 0, tail.ids + t0, tail.ids))
-            res = ivf_mod.merge_knn(res, tail, k)
+            with span("index.search.ivf.tail"):
+                # The tail reuses the grouped scan's LUTs: they already carry
+                # the method's rotation and norm semantics.
+                tail = ivf_mod.exhaustive_scan(ln, self.B[t0:], self._tail_extra(),
+                                               min(k, ntail))
+                tail = adc.KNNResult(tail.dists,
+                                     np.where(tail.ids >= 0, tail.ids + t0, tail.ids))
+                res = ivf_mod.merge_knn(res, tail, k)
         return adc.KNNResult(torch.as_tensor(res.dists), torch.as_tensor(res.ids))
 
     def search(self, Q, k: int = 100, *, mesh=None, nprobe: int | None = None,

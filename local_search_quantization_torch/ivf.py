@@ -36,7 +36,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from local_search_quantization_torch.ops import adc
+from local_search_quantization_torch.ops import adc, launch_counts
 from local_search_quantization_torch.ops.select_kernels import _mono
 
 __all__ = ["DeviceScan", "IVFPartition", "build_partition", "coarse_probes",
@@ -417,14 +417,21 @@ class DeviceScan:
         probed segments' positions, padded to the chunk's longest candidate
         list (pads at +inf); distances are the LUT gathers summed in j order,
         then the extra term. Returns (dists [nq, k] f32, ids [nq, k] int64),
-        (+inf, -1) past the live candidates."""
+        (+inf, -1) past the live candidates. Counts the queries and the live
+        rows of their probed lists (`ivf_queries`, `ivf_rows_scanned`),
+        read with the longest list at the route's one host sync."""
         nq, m, _ = luts.shape
         dev = self.device
         probes = probes.to(dev, torch.int64)
         used = probes >= 0
         lens = torch.where(used, self.lives[probes.clamp(min=0)], 0)  # [nq, p]
         ends = torch.cumsum(lens, dim=1)
-        longest = int(ends[:, -1].max()) if nq and probes.shape[1] else 0
+        longest = rows = 0
+        if nq and probes.shape[1]:
+            launch_counts.sync(ends)
+            longest, rows = torch.stack([ends[:, -1].max(), ends[:, -1].sum()]).tolist()
+        launch_counts.COUNTS["ivf_queries"] += nq
+        launch_counts.COUNTS["ivf_rows_scanned"] += rows
         if longest == 0:
             return adc.KNNResult(torch.full((nq, k), float("inf"), device=dev),
                                  torch.full((nq, k), -1, dtype=torch.int64, device=dev))

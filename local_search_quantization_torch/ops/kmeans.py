@@ -2,7 +2,8 @@
 
 Distances are ||x||^2 - 2 x.c + ||c||^2 with the cross term as one matrix
 product; the center update is a one-hot matrix product (deterministic, no
-atomics). Randomness comes from an explicit `torch.Generator`.
+atomics); both go a block of points at a time where [points, centers] would
+pass `_BLOCK_ELEMS`. Randomness comes from an explicit `torch.Generator`.
 """
 
 from __future__ import annotations
@@ -11,6 +12,14 @@ from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
+
+
+# Elements of the largest [points, centers] temporary that `assign` and
+# `_update_centers` make at once (1 GiB of f32). Above it they work a block of
+# points at a time: 2^20 points against 16,384 centers (an IVF coarse
+# quantizer at BIGANN-10M) would need 64 GiB a temporary whole. At or below
+# it they make one product.
+_BLOCK_ELEMS = 1 << 28
 
 
 class KMeansResult(NamedTuple):
@@ -28,20 +37,41 @@ def sq_distances(X: torch.Tensor, centers: torch.Tensor) -> torch.Tensor:
     return xsq[:, None] - 2.0 * cross + csq[None, :]
 
 
-def assign(X: torch.Tensor, centers: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """Nearest center, lowest index on ties: ([n] int32 labels, [n] costs)."""
+def _block_rows(k: int) -> int:
+    """Points a block of `assign` and `_update_centers` holds against k
+    centers."""
+    return max(1, _BLOCK_ELEMS // max(k, 1))
+
+
+def _assign_block(X: torch.Tensor, centers: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     d2 = sq_distances(X, centers)
     labels = torch.argmin(d2, dim=-1)
     costs = torch.gather(d2, 1, labels[:, None])[:, 0]
     return labels.to(torch.int32), costs
 
 
+def assign(X: torch.Tensor, centers: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Nearest center, lowest index on ties: ([n] int32 labels, [n] costs).
+    A block of `_block_rows` points at a time; each point's label and cost
+    are its own row's, whatever the blocks."""
+    rows = _block_rows(centers.shape[0])
+    parts = [_assign_block(X[s:s + rows], centers)
+             for s in range(0, max(X.shape[0], 1), rows)]
+    return torch.cat([p[0] for p in parts]), torch.cat([p[1] for p in parts])
+
+
 def _update_centers(X: torch.Tensor, labels: torch.Tensor,
                     k: int) -> tuple[torch.Tensor, torch.Tensor]:
-    """Mean of the assigned points per center: (centers [k, d], counts [k])."""
-    oh = F.one_hot(labels.long(), k).to(X.dtype)  # [n, k], exact
-    counts = torch.sum(oh, dim=0)
-    return (oh.T @ X) / torch.clamp(counts, min=1.0)[:, None], counts
+    """Mean of the assigned points per center: (centers [k, d], counts [k]).
+    One-hot products (deterministic, no atomics), summed over blocks of
+    `_block_rows` points in their order."""
+    rows = _block_rows(k)
+    sums = counts = None
+    for s in range(0, max(X.shape[0], 1), rows):
+        oh = F.one_hot(labels[s:s + rows].long(), k).to(X.dtype)  # [rows, k], exact
+        part, n_part = oh.T @ X[s:s + rows], torch.sum(oh, dim=0)
+        sums, counts = (part, n_part) if sums is None else (sums + part, counts + n_part)
+    return sums / torch.clamp(counts, min=1.0)[:, None], counts
 
 
 def kmeans_pp_init(gen: torch.Generator, X: torch.Tensor, k: int) -> torch.Tensor:

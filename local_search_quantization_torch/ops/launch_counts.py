@@ -14,6 +14,9 @@ The other counters live here (`COUNTS`; host syncs through `sync` and
 - `rerun_warm`, `rerun_widen`, `rerun_tournament`: the queries rerun by the
   kernel route's warm start, its deep-k widen and the tournament's tie
   certificate (queries, not batches).
+- `ivf_queries`, `ivf_rows_scanned`: the queries the probed scan
+  (`ivf.DeviceScan.search`) searched, and the live rows of the lists each
+  probed, summed over them.
 
 The server reports these at its end; a GPU run reads them around the work it
 drives. This module imports the kernel modules only inside `zero` and `read`,
@@ -27,7 +30,7 @@ import torch
 _SELECT = ("scan_select", "scan_key", "k2_filter", "k2_select")
 
 COUNTS = {"host_syncs": 0, "search_calls": 0, "add_calls": 0, "rerun_warm": 0,
-          "rerun_widen": 0, "rerun_tournament": 0}
+          "rerun_widen": 0, "rerun_tournament": 0, "ivf_queries": 0, "ivf_rows_scanned": 0}
 
 
 def _is_cuda(where) -> bool:

@@ -104,10 +104,15 @@ def test_chain_binaries_and_dims_match_jax_exactly():
         assert tsolver.chain_dims(d, m) == jsolver.chain_dims(d, m)
 
 
+@pytest.mark.parametrize("blocked", [False, True])
 @pytest.mark.parametrize("k,seed", [(12, 0), (40, 1)])
-def test_kmeans_from_the_same_centers_matches_jax(k, seed):
+def test_kmeans_from_the_same_centers_matches_jax(k, seed, blocked, monkeypatch):
     """JAX's k-means++ centers handed to the port: identical labels and
-    iteration count, centers within rtol 1e-5."""
+    iteration count, centers within rtol 1e-5; also where the port's
+    assignment and update go a block of points at a time (the path of a
+    coarse quantizer too large for one [points, centers] temporary)."""
+    if blocked:
+        monkeypatch.setattr(tkmeans, "_BLOCK_ELEMS", 7 * k)  # 7 points a block
     rng = np.random.default_rng(seed)
     X = (rng.normal(size=(900, 6)) * 3).astype(np.float32)
     key = jax.random.PRNGKey(seed)

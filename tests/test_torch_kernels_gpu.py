@@ -1054,13 +1054,16 @@ def sync_index():
     return idx, torch.as_tensor(q, device="cuda"), torch.as_tensor(xa, device="cuda")
 
 
-@pytest.mark.parametrize("call", ["search_k10", "search_k1000", "search_upload", "add"])
+@pytest.mark.parametrize("call", ["search_k10", "search_k1000", "search_upload", "add",
+                                  "search_ivf"])
 def test_host_syncs_count_every_sync_the_card_flags(cuda, sync_index, call):
     """Under `torch.cuda.set_sync_debug_mode("warn")` one call raises the
     `host_syncs` counter by exactly the number of syncs the card flags: a
     search at k=10 and at k=1000 (K2's certificate), one that uploads the
-    scan state again, and an add of 2^17 rows (K1's inputs, the codes and
-    the norms). Each call runs once before, so nothing is built in it."""
+    scan state again, an add of 2^17 rows (K1's inputs, the codes and
+    the norms), and a probed search (the IVF route, with the partition built
+    and uploaded in the call before). Each call runs once before, so nothing
+    is built in it."""
     import warnings
 
     from local_search_quantization_torch.ops import launch_counts
@@ -1070,6 +1073,10 @@ def test_host_syncs_count_every_sync_the_card_flags(cuda, sync_index, call):
     def run():
         if call == "add":
             return idx.add(X)
+        if call == "search_ivf":
+            if idx.ivf is None:
+                idx.build_ivf(256)
+            return idx.search(Q, k=10, nprobe=8)
         if call == "search_upload":
             idx._scan_ver += 1  # as a mutation does: the next search uploads
         return idx.search(Q, k=10 if call == "search_k10" else 1000)
@@ -1093,3 +1100,5 @@ def test_host_syncs_count_every_sync_the_card_flags(cuda, sync_index, call):
     assert counts["host_syncs"] == len(flagged), flagged
     assert counts["add_calls" if call == "add" else "search_calls"] == 1
     assert len(flagged) >= 1
+    if call == "search_ivf":
+        assert counts["ivf_queries"] == Q.shape[0] and counts["ivf_rows_scanned"] > 0
