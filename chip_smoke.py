@@ -79,6 +79,14 @@ nothing of JAX. Phases:
    shared-memory bytes its lookups must read; and the width of the
    shared-memory loads in its SASS (cuobjdump): the table lookups must be
    8- or 16-byte loads;
+3d. the IVF probed scan (`csrc/ivf_scan.cu`) against its plain version
+   (`ivf.ivf_scan_reference`) on synthetic grouped stores: at the IVF
+   cell's proportions (10M rows in 16,384 lists of lognormal sizes, median
+   537 and mean 610 rows, the largest 10,949; 1000 queries, nprobe 64,
+   k=10) and at path C's shapes (1M rows in 1024 lists, 1000 queries,
+   k=1000, nprobe 1, 8, 32 and 1024): dists and ids identical, the
+   kernel's time beside the plain version's and the bound of its bytes,
+   slices, launches and the peak memory above the store;
 4. main path A through `demos/demo_lsq_torch.py`'s functions on the
    synthetic SIFT-statistics corpus (100k train, 1M base, 1000 queries):
    OPQ -> ChainQ -> LSQ training (m=7, h=256, niter=10, ilsiter=8) with
@@ -253,6 +261,8 @@ KERNELS = {
                  "local_search_quantization_tpu/ops/select_pallas.py:488"),
     "icm_sweeps_dissect": ("local_search_quantization_torch/csrc/icm_sweeps.cu",
                            "benchmarks/bench_kernel_variants.py:50"),
+    # No TPU kernel: the JAX package scans the probed lists on the host.
+    "ivf_scan": ("local_search_quantization_torch/csrc/ivf_scan.cu", None),
 }
 K2_N, K2_QUERIES, K = 1_000_000, 1000, 1000
 # The card's name and power limit (nvidia-smi), printed beside every time.
@@ -1385,6 +1395,94 @@ def phase_k4(torch, inputs, t0, cap):
                                         out_bytes=4))
 
 
+def ivf_store_on(torch, dev, sizes, seed):
+    """A grouped store on the card as `ivf.DeviceScan` holds one: lists of
+    `sizes` live rows padded to 64, random codes (h=256), extra in [0, 1)
+    with 1% tombstones, order a permutation of the ids."""
+    from local_search_quantization_torch import ivf
+
+    lives = np.asarray(sizes, np.int64)
+    starts = ivf._padded_starts(lives)
+    n_g, n = int(starts[-1]), int(lives.sum())
+    g = torch.Generator(device=dev).manual_seed(seed)
+    seg = torch.repeat_interleave(torch.as_tensor(starts[:-1], device=dev),
+                                  torch.as_tensor(lives, device=dev))
+    pos = seg + torch.arange(n, device=dev) - torch.repeat_interleave(
+        torch.as_tensor(np.cumsum(lives) - lives, device=dev), torch.as_tensor(lives, device=dev))
+    order = torch.full((n_g,), -1, dtype=torch.int64, device=dev)
+    order[pos] = torch.randperm(n, generator=g, device=dev)
+    codesT = torch.randint(0, H, (M, n_g), generator=g, device=dev).to(torch.uint8)
+    extra = torch.rand(n_g, generator=g, device=dev)
+    extra[pos[torch.randperm(n, generator=g, device=dev)[:n // 100]]] = float("inf")
+    return (torch.as_tensor(starts[:-1].copy(), device=dev), torch.as_tensor(lives, device=dev),
+            codesT, extra, order, float(lives.mean()))
+
+
+def time_ivf_scan(torch, dev, store, nq, p, k, label, seed, plain_reps):
+    """Kernel against plain version at one shape: identical results, times,
+    bound. Returns (max abs dist error, ms, plain ms, bound ms, bound by)."""
+    from local_search_quantization_torch import ivf
+
+    starts, lives, codesT, extra, order, mean_rows = store
+    g = torch.Generator(device=dev).manual_seed(seed)
+    nlist = lives.shape[0]
+    probes = torch.argsort(torch.rand(nq, nlist, generator=g, device=dev), dim=1)[:, :p]
+    probes = probes.contiguous()
+    luts = torch.randn(nq, M, H, generator=g, device=dev)
+    rows = int(lives[probes].sum())
+    before = read_counters()
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    got = ivf.ivf_scan(luts, k, probes, starts, lives, codesT, extra, order, mean_rows)
+    torch.cuda.synchronize()
+    above = (torch.cuda.max_memory_allocated() - held) / 2**20
+    after = read_counters()
+    want = ivf.ivf_scan_reference(luts, k, probes, starts, lives, codesT.t(), extra, order)
+    same = torch.equal(got.dists, want.dists) and torch.equal(got.ids, want.ids)
+    check(same, f"IVF scan {label}: the kernel differs from its plain version")
+    ms = cuda_ms(torch, lambda: ivf.ivf_scan(luts, k, probes, starts, lives, codesT, extra,
+                                             order, mean_rows), 20)
+    plain_ms = cuda_ms(torch, lambda: ivf.ivf_scan_reference(
+        luts, k, probes, starts, lives, codesT.t(), extra, order), plain_reps)
+    bound = roofline_ms(rows * (M + 1), rows * (M + 4) + nq * M * H * 4 + nq * p * 8
+                        + nq * k * 12)
+    slices = ivf.ivf_slices(nq, p, k, mean_rows,
+                            torch.cuda.get_device_properties(dev).multi_processor_count)
+    print(f"[{CARD}] IVF scan {label}: nq={nq} nprobe={p} k={k}, {rows} live rows "
+          f"({rows / nq:.0f} a query), {slices} slices a query: kernel {ms:.3f} ms, plain "
+          f"{plain_ms:.3f} ms, bound {bound[0]:.3f} ms ({bound[1]}; kernel at "
+          f"{bound[0] / ms:.1%}); identical dists and ids {same}; launches "
+          f"{after['ivf_scan'] - before['ivf_scan']} scan, "
+          f"{after['ivf_merge'] - before['ivf_merge']} merge; rows counted "
+          f"{after['ivf_rows_scanned'] - before['ivf_rows_scanned']}; peak "
+          f"{above:.1f} MiB above what was held")
+    check(after["ivf_scan"] - before["ivf_scan"] == 1
+          and after["ivf_rows_scanned"] - before["ivf_rows_scanned"] == rows,
+          f"IVF scan {label}: launches or counted rows wrong")
+    return 0.0, ms, plain_ms, *bound
+
+
+def phase_ivf_scan(torch, dev):
+    """Phase 3d: the IVF kernel at the IVF cell's proportions and at path
+    C's shapes. Returns the cell-proportion row for the kernels' line."""
+    rng = np.random.default_rng(21)
+    # The IVF cell's lists: median 537, mean 610, largest 10,949 rows.
+    sizes = np.minimum(np.round(537 * np.exp(0.505 * rng.standard_normal(16_384))), 10_949)
+    sizes[0] = 10_949
+    store = ivf_store_on(torch, dev, sizes.astype(np.int64), 22)
+    cell = time_ivf_scan(torch, dev, store, 1000, 64, 10, "IVF cell proportions", 23, 2)
+    del store
+    sizes_c = np.random.default_rng(24).multinomial(1_000_000, np.full(IVF_NLIST, 1 / IVF_NLIST))
+    store = ivf_store_on(torch, dev, sizes_c, 25)
+    for p in (1, 8, 32, IVF_NLIST):
+        time_ivf_scan(torch, dev, store, 1000, p, K, f"path C shapes nprobe={p}", 26 + p,
+                      1 if p == IVF_NLIST else 3)
+    del store
+    torch.cuda.empty_cache()
+    return cell
+
+
 def mrf_cost_chunked(torch, X, B, C):
     """Per-row MRF cost, the metric ILS accepts in, in 131072-row chunks."""
     from local_search_quantization_torch.ops.icm import cost_from_luts
@@ -1480,7 +1578,7 @@ def drive_path(torch, demo, data, dev, label, mode, init):
 
 
 COUNTED = ("ils_encode", "scan_topk", "icm_sweeps_v2", "icm_sweeps_v1", "scan_select",
-           "scan_key", "icm_sweeps_dissect")
+           "scan_key", "icm_sweeps_dissect", "ivf_scan")
 
 
 def zero_counters():
@@ -1561,6 +1659,7 @@ def phase_ivf_routes(torch, idx, Q, gt, base):
     wide = idx.search(Q, k=K + 1).dists
     untied = wide[:, K - 1] < wide[:, K]
     recalls = []
+    before = read_counters()
     for p in (1, 8, 32, IVF_NLIST):
         if p < IVF_NLIST:
             idx.search(Q, k=K, nprobe=p)  # the first run uploads the grouped store
@@ -1578,7 +1677,7 @@ def phase_ivf_routes(torch, idx, Q, gt, base):
         print(f"[{CARD}] path C IVF nprobe={p:<5} k={K}: {s * 1e3:9.3f} ms, {nq / s:10.1f} "
               f"qps, recall " + ", ".join(f"@{n} {rec[n - 1]:.4f}" for n in (1, 10, 100))
               + f"; peak device memory {peak / 2**30:.3f} GiB, {(peak - held) / 2**30:.3f} "
-              f"GiB above what was held (the padded gather); slots filled "
+              f"GiB above what was held (the scan's workspace, the tables); slots filled "
               f"{float(live.float().mean()):.4f}")
         check(res.ids.dtype == torch.int64 and tuple(res.ids.shape) == (nq, K)
               and bool((res.ids[live] < idx.n).all())
@@ -1588,6 +1687,10 @@ def phase_ivf_routes(torch, idx, Q, gt, base):
               f"path C IVF nprobe={p}: ids or dists malformed (a pad row, or not ascending)")
     check(all(b[9] >= a[9] for a, b in zip(recalls, recalls[1:])),
           f"path C IVF: recall@10 falls as nprobe grows: {[r[9] for r in recalls]}")
+    launched = read_counters()["ivf_scan"] - before["ivf_scan"]
+    print(f"path C IVF: the probed scan's kernel launched {launched} times over "
+          f"{2 * 4 - 1} probed searches")
+    check(launched == 7, "path C IVF: a probed search did not launch the kernel")
     same_d = torch.equal(res.dists, base.dists)
     same_i = torch.equal(res.ids[untied], base.ids[untied].long())
     print(f"path C IVF nprobe={IVF_NLIST}: dists identical to the default route on all "
@@ -2798,6 +2901,7 @@ def main() -> int:
     k3, t0, cap = phase_k3(torch, k2_inputs, practical.pop("l2_gbps"))
     k4 = phase_k4(torch, k2_inputs, t0, cap)
     del k2_inputs
+    ivf_row = phase_ivf_scan(torch, dev)
     launches_ab, path_a = phase_main(torch, demo, data, dev)
     launches_c, recall_c, for_g = phase_serving(torch, data, dev)
     paths = [*launches_ab, launches_c, phase_bench_path(torch, dev)]
@@ -2821,7 +2925,7 @@ def main() -> int:
                                        k1_extra)),
         "scan_topk": k2, "icm_sweeps_v2": (*sweeps["v2"], *sweep_bound),
         "icm_sweeps_v1": (*sweeps["v1"], *sweep_bound), "scan_select": k3,
-        "scan_key": k4, "icm_sweeps_dissect": (*k7, *sweep_bound)}
+        "scan_key": k4, "icm_sweeps_dissect": (*k7, *sweep_bound), "ivf_scan": ivf_row}
     # No single PyTorch call computes any of these functions: library_ms is
     # null (torch.topk, the select half of K2 and K3 alone, is printed above).
     kernels = [{"name": name, "route": "cuda", "source": src, "replaces": site,

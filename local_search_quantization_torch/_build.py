@@ -66,7 +66,8 @@ def sanitizer() -> str | None:
 
 # Every kernel source in csrc/, by name (l2_probe is the L2 gather probe, a
 # measurement tool on no path).
-KERNELS = ("ils_encode", "scan_topk", "icm_sweeps", "scan_select", "scan_key", "l2_probe")
+KERNELS = ("ils_encode", "scan_topk", "icm_sweeps", "scan_select", "scan_key", "ivf_scan",
+           "l2_probe")
 
 
 def _paths(name: str) -> tuple[str, str]:

@@ -537,7 +537,8 @@ class Index:
     def _search_ivf(self, Q: torch.Tensor, k: int, nprobe: int) -> adc.KNNResult:
         """The probed scan, then the rows added since the partition was built
         scanned exhaustively and merged. A CUDA index scans on its device
-        (`ivf.DeviceScan`; the tail through K2); a CPU index takes the native
+        (`ivf.DeviceScan`: the kernel of csrc/ivf_scan.cu, k <= 2048, no host
+        sync; the tail through K2); a CPU index takes the native
         scanner where it is built, else the numpy oracle. ids are int64.
         Spans: `index.search.ivf.probes` (the coarse probes),
         `index.search.ivf.scan` (the probed scan), `index.search.ivf.tail`
@@ -586,7 +587,8 @@ class Index:
         nearest coarse lists per query, plus the rows added since the
         partition: approximate in which rows are candidates, exact in their
         distances; recall -> the exhaustive scan's as nprobe -> nlist (ids then
-        int64). None/0 = exhaustive. refine: with a refine store, re-rank the
+        int64); on a CUDA index the probed scan takes k <= 2048 (with refine,
+        refine * k) and raises beyond. None/0 = exhaustive. refine: with a refine store, re-rank the
         top refine*k ADC candidates by exact squared L2 to the stored vectors
         (ids then int64); composes with nprobe. precision "bf16" rounds the
         query LUTs to bf16, on the exhaustive routes only (the probed scan is

@@ -22,30 +22,52 @@ The partition's arrays are host numpy with the JAX package's names, dtypes
 and padding: `to_arrays`/`from_arrays` read and write its `ivf.npz`, and the
 host functions here (`topk_lex`, `coarse_probes`, `search`, `exhaustive_scan`,
 `merge_knn`) are its numpy functions. `build_partition` trains and assigns
-with torch on the device it is given. `DeviceScan` is the probed scan on a
-CUDA index, in plain torch (the reference has no kernel here): the grouped
-store uploaded once, probes by a matmul and a top-`nprobe`, the probed
-segments' rows gathered a chunk of queries at a time, distances summed in
-`lut_scan_block`'s order, and a lexicographic (dist, id) top-k.
+with torch on the device it is given. `DeviceScan` is the probed scan on the
+index's device: the grouped store uploaded once, probes by a matmul and a
+top-`nprobe`, and `ivf_scan`, which on a CUDA device launches the kernel of
+`csrc/ivf_scan.cu` (each query's probed segments scored in place, the exact
+(dist, id) top-k kept on chip, no read back to the host; the JAX package
+has no kernel here) and on the CPU runs its plain version
+`ivf_scan_reference`: the probed segments' rows gathered a chunk of queries
+at a time, distances summed in `lut_scan_block`'s order, and a
+lexicographic (dist, id) top-k.
 """
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 
 import numpy as np
 import torch
 
+from local_search_quantization_torch import _build
 from local_search_quantization_torch.ops import adc, launch_counts
 from local_search_quantization_torch.ops.select_kernels import _mono
 
 __all__ = ["DeviceScan", "IVFPartition", "build_partition", "coarse_probes",
-           "exhaustive_scan", "merge_knn", "merge_knn_device", "search", "topk_lex"]
+           "exhaustive_scan", "ivf_kcap", "ivf_scan", "ivf_scan_reference", "ivf_slices",
+           "merge_knn", "merge_knn_device", "search", "topk_lex"]
 
-# Candidates (queries x the longest probed list) one chunk of the device scan
-# gathers at once: some ten int64 or f32 temporaries of this many elements.
+# Candidates (queries x the longest probed list) one chunk of the plain device
+# scan gathers at once: some ten int64 or f32 temporaries of this many elements.
 _DEVICE_CHUNK_ELEMS = 1 << 24
 _ASSIGN_CHUNK = 1 << 16
+# The probed scan's kernel (csrc/ivf_scan.cu): the k capacities it is built
+# for; the largest table a block holds; the scan blocks an SM holds; the
+# rows a slice aims at (on the H100 at the IVF cell's shapes, 3 slices of
+# ~13k rows took 0.44 ms, 10 of ~4k 0.51 ms: a block's set-up is dear), the
+# rows a slice keeps per unit of k, the most slices a query, and the most
+# keys of the slices' workspace.
+_IVF_KCAPS = (32, 256, 2048)
+_IVF_LUT_MAX_BYTES = 160 * 1024
+_IVF_BLOCKS_PER_SM = 6
+_IVF_SLICE_ROWS = 16384
+_IVF_ROWS_PER_K = 8
+_IVF_MAX_SLICES = 256
+_IVF_WORK_KEYS = 1 << 25
+_P = ctypes.c_void_p
+_I = ctypes.c_int
 
 
 def topk_lex(d: np.ndarray, ids: np.ndarray, k: int):
@@ -365,7 +387,7 @@ def merge_knn(a: adc.KNNResult, b: adc.KNNResult, k: int) -> adc.KNNResult:
 
 
 # ---------------------------------------------------------------------------
-# The probed scan on the index's device, in plain torch.
+# The probed scan on the index's device: the kernel, and its plain version.
 
 
 def _topk_lex_rows(d: torch.Tensor, ids: torch.Tensor, k: int):
@@ -389,9 +411,161 @@ def _topk_lex_rows(d: torch.Tensor, ids: torch.Tensor, k: int):
     return out_d, out_i
 
 
+def ivf_scan_reference(luts: torch.Tensor, k: int, probes: torch.Tensor,
+                       starts: torch.Tensor, lives: torch.Tensor, codes: torch.Tensor,
+                       extra: torch.Tensor | None, order: torch.Tensor) -> adc.KNNResult:
+    """Plain version of `ivf_scan`, the function of `_numpy_scan` on a
+    device: luts [nq, m, h] f32, probes [nq, p] list ids (-1 = unused),
+    the grouped store's starts and lives [nlist], codes [n_g, m], extra
+    [n_g] or None, order [n_g]. A chunk of queries gathers its probed
+    segments' positions, padded to the chunk's longest candidate list (pads
+    at +inf); distances are the LUT gathers summed in j order, then the
+    extra term. Returns (dists [nq, k] f32, ids [nq, k] int64), (+inf, -1)
+    past the live candidates. Counts the queries and the live rows of their
+    probed lists (`ivf_queries`, `ivf_rows_scanned`), read with the longest
+    list at one host sync."""
+    nq, m, _ = luts.shape
+    dev = starts.device
+    probes = probes.to(dev, torch.int64)
+    used = probes >= 0
+    lens = torch.where(used, lives[probes.clamp(min=0)], 0)  # [nq, p]
+    ends = torch.cumsum(lens, dim=1)
+    longest = rows = 0
+    if nq and probes.shape[1]:
+        launch_counts.sync(ends)
+        longest, rows = torch.stack([ends[:, -1].max(), ends[:, -1].sum()]).tolist()
+    launch_counts.COUNTS["ivf_queries"] += nq
+    launch_counts.COUNTS["ivf_rows_scanned"] += rows
+    if longest == 0:
+        return adc.KNNResult(torch.full((nq, k), float("inf"), device=dev),
+                             torch.full((nq, k), -1, dtype=torch.int64, device=dev))
+    first = starts[probes.clamp(min=0)] - (ends - lens)  # position - slot
+    slots = torch.arange(longest, device=dev)
+    chunk = max(1, _DEVICE_CHUNK_ELEMS // longest)
+    out_d, out_i = [], []
+    for s in range(0, nq, chunk):
+        e, f, lq = ends[s:s + chunk], first[s:s + chunk], luts[s:s + chunk]
+        c = e.shape[0]
+        live = slots[None, :] < e[:, -1:]
+        # The probe each slot falls into: the first whose end is past it.
+        which = torch.searchsorted(e, slots[None, :].expand(c, -1).contiguous(),
+                                   right=True).clamp(max=e.shape[1] - 1)
+        pos = torch.where(live, torch.gather(f, 1, which) + slots[None, :], 0)
+        rows_c = codes[pos]  # [c, longest, m]
+        d = torch.gather(lq[:, 0, :], 1, rows_c[:, :, 0].long())
+        for j in range(1, m):
+            d = d + torch.gather(lq[:, j, :], 1, rows_c[:, :, j].long())
+        if extra is not None:
+            d = d + extra[pos]
+        d = torch.where(live, d, float("inf"))
+        dd, ii = _topk_lex_rows(d, torch.where(live, order[pos], -1), k)
+        out_d.append(dd)
+        out_i.append(ii)
+    return adc.KNNResult(torch.cat(out_d), torch.cat(out_i))
+
+
+def ivf_kcap(k: int) -> int:
+    """The k capacity of the kernel build that takes k: the least of
+    `_IVF_KCAPS` >= k. A k beyond the largest raises."""
+    for cap in _IVF_KCAPS:
+        if 1 <= k <= cap:
+            return cap
+    raise ValueError(f"ivf_scan: k={k} out of the probed scan kernel's range [1, "
+                     f"{_IVF_KCAPS[-1]}] (its largest k capacity)")
+
+
+def ivf_slices(nq: int, p: int, k: int, mean_rows: float, sms: int) -> int:
+    """Slices a query's probed chunks are cut into (the scan's grid is nq x
+    slices), from what the host knows without reading the lists: the rows a
+    query probes estimated as p x the mean list. Enough slices that the grid
+    fills the card (`_IVF_BLOCKS_PER_SM` blocks an SM) and that a slice holds
+    about `_IVF_SLICE_ROWS` rows, so that a heavy query is spread like a
+    light one; at most one slice a `_IVF_ROWS_PER_K` x k rows, so that each
+    slice's top-k is a small share of its rows; at most `_IVF_MAX_SLICES`,
+    and at most `_IVF_WORK_KEYS` keys in the slices' workspace."""
+    rows = p * mean_rows
+    want = max(-(-_IVF_BLOCKS_PER_SM * sms // max(nq, 1)), int(-(-rows // _IVF_SLICE_ROWS)))
+    most = min(_IVF_MAX_SLICES, int(rows // (_IVF_ROWS_PER_K * k)),
+               _IVF_WORK_KEYS // max(nq * k, 1))
+    return max(1, min(want, most))
+
+
+def ivf_scan(luts: torch.Tensor, k: int, probes: torch.Tensor, starts: torch.Tensor,
+             lives: torch.Tensor, codesT: torch.Tensor, extra: torch.Tensor | None,
+             order: torch.Tensor, mean_rows: float) -> adc.KNNResult:
+    """The probed scan of `ivf_scan_reference` (same arguments and
+    results, codes given as planes codesT [m, n_g] uint8; mean_rows: the
+    mean live rows of a list, a host number that sizes the grid). On a CUDA
+    device the kernel of csrc/ivf_scan.cu, for k <= 2048 (`ivf_kcap`; a
+    larger k raises), with no host sync: `ivf_queries` is counted on the
+    host, `ivf_rows_scanned` on the device (`launch_counts.device_counter`).
+    On the CPU the plain version. Counts launches in `ivf_scan.launches` and
+    the merge's in `ivf_scan.merge_launches`."""
+    dev = luts.device
+    if dev.type == "cpu":
+        return ivf_scan_reference(luts, k, probes, starts, lives, codesT.t(), extra, order)
+    if dev.type != "cuda":
+        raise ValueError(f"ivf_scan: unsupported device {dev}")
+    cap = ivf_kcap(k)
+    nq, m, h = luts.shape
+    p = probes.shape[-1]
+    n_g = codesT.shape[1]
+    checks = [(luts, luts.dtype == torch.float32, "luts must be f32 [nq, m, h]"),
+              (probes, probes.dtype == torch.int64 and probes.ndim == 2
+               and probes.shape[0] == nq, "probes must be int64 [nq, p]"),
+              (starts, starts.dtype == torch.int64 and starts.ndim == 1,
+               "starts must be int64 [nlist]"),
+              (lives, lives.dtype == torch.int64 and lives.shape == starts.shape,
+               "lives must be int64 [nlist]"),
+              (codesT, codesT.dtype == torch.uint8 and codesT.shape[0] == m
+               and n_g % 64 == 0 and n_g < 1 << 31 and codesT.data_ptr() % 16 == 0,
+               "codesT must be uint8 [m, n_g], n_g a multiple of 64 below 2^31, 16-byte aligned"),
+              (order, order.dtype == torch.int64 and tuple(order.shape) == (n_g,),
+               "order must be int64 [n_g]")]
+    if extra is not None:
+        checks.append((extra, extra.dtype == torch.float32 and tuple(extra.shape) == (n_g,)
+                       and extra.data_ptr() % 16 == 0,
+                       "extra must be f32 [n_g], 16-byte aligned"))
+    for t, ok, msg in checks:
+        if not ok or t.device != dev or not t.is_contiguous():
+            raise ValueError(f"ivf_scan: {msg}, contiguous, on {dev}; got "
+                             f"{t.dtype} {tuple(t.shape)} on {t.device}")
+    if m * h * 4 > _IVF_LUT_MAX_BYTES:
+        raise ValueError(f"ivf_scan: a [{m}, {h}] f32 table exceeds the "
+                         f"{_IVF_LUT_MAX_BYTES} bytes a scan block holds")
+    launch_counts.COUNTS["ivf_queries"] += nq
+    out_d = torch.empty((nq, k), dtype=torch.float32, device=dev)
+    out_i = torch.empty((nq, k), dtype=torch.int64, device=dev)
+    if nq == 0 or p == 0:
+        return adc.KNNResult(out_d.fill_(float("inf")), out_i.fill_(-1))
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    slices = ivf_slices(nq, p, k, mean_rows, sms)
+    work = (torch.empty((nq * slices * k,), dtype=torch.int64, device=dev)
+            if slices > 1 else None)
+    rows = launch_counts.device_counter("ivf_rows_scanned", dev)
+    lib = _build.load("ivf_scan")
+    lib.lsq_ivf_scan.argtypes = [_P, _I, _I, _I, _P, _I, _P, _P, _P, ctypes.c_longlong, _P, _P,
+                                 _I, _I, _I, _P, _P, _P, _P, _P]
+    lib.lsq_ivf_scan.restype = _I
+    err = lib.lsq_ivf_scan(
+        luts.data_ptr(), nq, m, h, probes.data_ptr(), p, starts.data_ptr(), lives.data_ptr(),
+        codesT.data_ptr(), n_g, None if extra is None else extra.data_ptr(), order.data_ptr(),
+        k, cap, slices, None if work is None else work.data_ptr(), rows.data_ptr(),
+        out_d.data_ptr(), out_i.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(lib, err, "ivf_scan kernel launch")
+    ivf_scan.launches += 1
+    ivf_scan.merge_launches += slices > 1
+    return adc.KNNResult(out_d, out_i)
+
+
+ivf_scan.launches = 0
+ivf_scan.merge_launches = 0
+
+
 class DeviceScan:
     """A partition's grouped store on a torch device, for the probed scan
-    there. Build it anew after the partition or its tombstones change."""
+    there (`ivf_scan`). Build it anew after the partition or its tombstones
+    change."""
 
     def __init__(self, part: IVFPartition, device):
         dev = torch.device(device)
@@ -401,9 +575,12 @@ class DeviceScan:
         self.cnorms = torch.as_tensor(part.cnorms).to(dev)
         self.starts = torch.as_tensor(part.starts[:-1].copy()).to(dev)
         self.lives = torch.as_tensor(part.lives).to(dev)
-        self.codes = torch.as_tensor(part.codes_g).to(dev)  # [n_g, m] uint8
+        # [m, n_g] uint8 planes; the plain version reads their transpose's rows.
+        self.codesT = torch.as_tensor(part.codesT_g).to(dev)
         self.order = torch.as_tensor(part.order).to(dev)
         self.extra = None if part.extra_g is None else torch.as_tensor(part.extra_g).to(dev)
+        # The mean live rows of a list: sizes the kernel's grid with no read.
+        self.mean_rows = float(part.lives.mean()) if part.nlist else 0.0
 
     def probes(self, Q: torch.Tensor, nprobe: int) -> torch.Tensor:
         """[nq, nprobe] int64 nearest-list ids, closest first (the function
@@ -413,51 +590,11 @@ class DeviceScan:
 
     def search(self, luts: torch.Tensor, k: int, probes: torch.Tensor) -> adc.KNNResult:
         """The function of `_numpy_scan` on the device: luts [nq, m, h] f32,
-        probes [nq, p] list ids (-1 = unused). A chunk of queries gathers its
-        probed segments' positions, padded to the chunk's longest candidate
-        list (pads at +inf); distances are the LUT gathers summed in j order,
-        then the extra term. Returns (dists [nq, k] f32, ids [nq, k] int64),
-        (+inf, -1) past the live candidates. Counts the queries and the live
-        rows of their probed lists (`ivf_queries`, `ivf_rows_scanned`),
-        read with the longest list at the route's one host sync."""
-        nq, m, _ = luts.shape
-        dev = self.device
-        probes = probes.to(dev, torch.int64)
-        used = probes >= 0
-        lens = torch.where(used, self.lives[probes.clamp(min=0)], 0)  # [nq, p]
-        ends = torch.cumsum(lens, dim=1)
-        longest = rows = 0
-        if nq and probes.shape[1]:
-            launch_counts.sync(ends)
-            longest, rows = torch.stack([ends[:, -1].max(), ends[:, -1].sum()]).tolist()
-        launch_counts.COUNTS["ivf_queries"] += nq
-        launch_counts.COUNTS["ivf_rows_scanned"] += rows
-        if longest == 0:
-            return adc.KNNResult(torch.full((nq, k), float("inf"), device=dev),
-                                 torch.full((nq, k), -1, dtype=torch.int64, device=dev))
-        first = self.starts[probes.clamp(min=0)] - (ends - lens)  # position - slot
-        slots = torch.arange(longest, device=dev)
-        chunk = max(1, _DEVICE_CHUNK_ELEMS // longest)
-        out_d, out_i = [], []
-        for s in range(0, nq, chunk):
-            e, f, lq = ends[s:s + chunk], first[s:s + chunk], luts[s:s + chunk]
-            c = e.shape[0]
-            live = slots[None, :] < e[:, -1:]
-            # The probe each slot falls into: the first whose end is past it.
-            which = torch.searchsorted(e, slots[None, :].expand(c, -1).contiguous(),
-                                       right=True).clamp(max=e.shape[1] - 1)
-            pos = torch.where(live, torch.gather(f, 1, which) + slots[None, :], 0)
-            codes = self.codes[pos]  # [c, longest, m]
-            d = torch.gather(lq[:, 0, :], 1, codes[:, :, 0].long())
-            for j in range(1, m):
-                d = d + torch.gather(lq[:, j, :], 1, codes[:, :, j].long())
-            if self.extra is not None:
-                d = d + self.extra[pos]
-            d = torch.where(live, d, float("inf"))
-            dd, ii = _topk_lex_rows(d, torch.where(live, self.order[pos], -1), k)
-            out_d.append(dd)
-            out_i.append(ii)
-        return adc.KNNResult(torch.cat(out_d), torch.cat(out_i))
+        probes [nq, p] list ids (-1 = unused). Returns (dists [nq, k] f32,
+        ids [nq, k] int64), (+inf, -1) past the live candidates; see
+        `ivf_scan`."""
+        return ivf_scan(luts, k, probes.to(self.device, torch.int64).contiguous(), self.starts,
+                        self.lives, self.codesT, self.extra, self.order, self.mean_rows)
 
 
 def merge_knn_device(a: adc.KNNResult, b: adc.KNNResult, k: int) -> adc.KNNResult:

@@ -15,8 +15,10 @@ The other counters live here (`COUNTS`; host syncs through `sync` and
   kernel route's warm start, its deep-k widen and the tournament's tie
   certificate (queries, not batches).
 - `ivf_queries`, `ivf_rows_scanned`: the queries the probed scan
-  (`ivf.DeviceScan.search`) searched, and the live rows of the lists each
-  probed, summed over them.
+  (`ivf.ivf_scan`) searched, and the live rows of the lists each probed,
+  summed over them. The kernel adds its rows on the card, to a
+  `device_counter`, so that the call reads nothing back; `read` folds that
+  counter in (one host read, at the read).
 
 The server reports these at its end; a GPU run reads them around the work it
 drives. This module imports the kernel modules only inside `zero` and `read`,
@@ -31,6 +33,8 @@ _SELECT = ("scan_select", "scan_key", "k2_filter", "k2_select")
 
 COUNTS = {"host_syncs": 0, "search_calls": 0, "add_calls": 0, "rerun_warm": 0,
           "rerun_widen": 0, "rerun_tournament": 0, "ivf_queries": 0, "ivf_rows_scanned": 0}
+# Counters a kernel adds to on the card: {(name of a COUNTS key, device): int64 [1]}.
+_ON_DEVICE: dict[tuple[str, torch.device], torch.Tensor] = {}
 
 
 def _is_cuda(where) -> bool:
@@ -54,8 +58,19 @@ def copy(src, dst) -> None:
         COUNTS["host_syncs"] += 1
 
 
+def device_counter(name: str, device) -> torch.Tensor:
+    """The int64 [1] tensor on `device` where a kernel adds to the counter
+    `name` (a key of `COUNTS`): made once, zeroed by `zero`, added to
+    `name` by `read`."""
+    key = (name, torch.device(device))
+    if key not in _ON_DEVICE:
+        _ON_DEVICE[key] = torch.zeros(1, dtype=torch.int64, device=key[1])
+    return _ON_DEVICE[key]
+
+
 def zero() -> None:
     """Every counter to 0."""
+    from local_search_quantization_torch import ivf
     from local_search_quantization_torch.ops import icm_kernels, select_kernels
 
     icm_kernels.ils_encode_streamed.launches = 0
@@ -65,14 +80,19 @@ def zero() -> None:
     for name in _SELECT:
         getattr(select_kernels, name).launches = 0
     select_kernels.scan_topk.dense_launches = select_kernels.scan_topk.failed = 0
+    ivf.ivf_scan.launches = ivf.ivf_scan.merge_launches = 0
     for key in COUNTS:
         COUNTS[key] = 0
+    for t in _ON_DEVICE.values():
+        t.zero_()
 
 
 def read() -> dict:
     """{counter: count}: one key a kernel (K7 also per variant under
-    "dissect"), with K2's stages and dense path beside their sum, then the
-    keys of `COUNTS`."""
+    "dissect"), with K2's stages and dense path beside their sum, the
+    probed scan's and its merge's, then the keys of `COUNTS` with the
+    device counters added."""
+    from local_search_quantization_torch import ivf
     from local_search_quantization_torch.ops import icm_kernels, select_kernels
 
     out = {"ils_encode": icm_kernels.ils_encode_streamed.launches,
@@ -89,5 +109,10 @@ def read() -> dict:
     # K2 launches its filter (and then its select) once a chunk of queries on
     # the staged path, its dense kernels once a launch on the dense path.
     out["scan_topk"] = out["k2_filter"] + out["scan_topk_dense"]
+    # The probed scan launches its merge too where a query has several slices.
+    out["ivf_scan"] = ivf.ivf_scan.launches
+    out["ivf_merge"] = ivf.ivf_scan.merge_launches
     out.update(COUNTS)
+    for (name, _), t in _ON_DEVICE.items():
+        out[name] += int(t.item())
     return out

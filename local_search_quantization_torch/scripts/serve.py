@@ -76,8 +76,9 @@ from local_search_quantization_torch.utils.device import entry_device  # noqa: E
 # Per-request payload cap for binary frames, in bytes: over-cap but
 # well-formed requests have their frame drained and are answered as errors.
 _MAX_BINARY_BYTES = 512 << 20
-# The kernels a request can launch: K1 (add on an LSQ index), K2, K3, K4.
-WARM_KERNELS = ("ils_encode", "scan_topk", "scan_select", "scan_key")
+# The kernels a request can launch: K1 (add on an LSQ index), K2, K3, K4,
+# and the IVF probed scan (nprobe).
+WARM_KERNELS = ("ils_encode", "scan_topk", "scan_select", "scan_key", "ivf_scan")
 # The stderr note at the end of the stream: the requests' kernel launches.
 LAUNCHES_NOTE = "serve: kernel launches "
 

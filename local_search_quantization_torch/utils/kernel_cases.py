@@ -18,7 +18,10 @@ ends:
   uint8 and int32 codes, nq 1 and 33, k=1 and k >= n where the wrapper
   takes it, K2's certificate failing for one query (the dense rerun), K2's
   dense path with a tie block at the k-th distance across a segment edge,
-  K4 with a cap that overflows, and the L2 probe.
+  K4 with a cap that overflows, and the L2 probe;
+- the IVF probed scan: ragged and empty lists, -1 probe slots, tombstoned
+  rows, no extra (a PQ store), fewer candidates than k, one query over
+  every list, each k capacity, one slice a query and many (the merge).
 
 The wrappers run on the card unless given `--device cpu`; on the CPU they
 take their plain versions, so only the plain halves run. The run stops with
@@ -58,6 +61,7 @@ import torch
 import torch.utils.deterministic
 
 from local_search_quantization_torch import _build
+from local_search_quantization_torch import ivf
 from local_search_quantization_torch.ops import icm_kernels as ik
 from local_search_quantization_torch.ops import l2_probe, launch_counts
 from local_search_quantization_torch.ops import luts as _luts
@@ -411,6 +415,68 @@ def _key_route(k, cap):
                 route, plain, _same)
 
 
+def _ivf_store(rng, sizes, m, h, extra, dead=0):
+    """A grouped store as `ivf.IVFPartition` lays it out, as numpy: lists
+    of `sizes` live rows, each padded to 64; codes [n_g, m] uint8 below h;
+    order a permutation of the live ids (-1 on pads); extra "norms"
+    (integers in [0, 3), so distances tie), "none" (a PQ store) or with
+    `dead` live rows tombstoned (+inf). Returns (starts [nlist + 1], lives,
+    codes_g, extra_g or None, order)."""
+    lives = np.asarray(sizes, np.int64)
+    starts = ivf._padded_starts(lives)
+    n_g, n = int(starts[-1]), int(lives.sum())
+    live_pos = np.concatenate([np.arange(starts[i], starts[i] + lives[i])
+                               for i in range(lives.size)]).astype(np.int64)
+    order = np.full(n_g, -1, np.int64)
+    order[live_pos] = rng.permutation(n)
+    codes = np.zeros((n_g, m), np.uint8)
+    codes[live_pos] = rng.integers(0, h, (n, m))
+    if extra == "none":
+        return starts, lives, codes, None, order
+    extra_g = np.zeros(n_g, np.float32)
+    extra_g[live_pos] = rng.integers(0, 3, n)
+    extra_g[rng.choice(live_pos, dead, replace=False)] = np.inf
+    return starts, lives, codes, extra_g, order
+
+
+def _ivf_make(sizes, nq, p, m, h, extra, dead, unused, seed):
+    """Inputs of `ivf.ivf_scan`: integer tables (tie-heavy distances),
+    each query's p distinct lists with `unused` slots -1, and the store of
+    `_ivf_store`."""
+    def make(dev):
+        rng = np.random.default_rng(seed)
+        starts, lives, codes, extra_g, order = _ivf_store(rng, sizes, m, h, extra, dead)
+        probes = np.stack([rng.permutation(len(sizes))[:p] for _ in range(nq)])
+        for row in probes:
+            row[rng.choice(p, unused, replace=False)] = -1
+        def t(a):
+            return torch.as_tensor(a, device=dev)
+        luts = t(rng.integers(-4, 5, (nq, m, h)).astype(np.float32))
+        return (luts, t(probes), t(starts[:-1].copy()), t(lives),
+                t(np.ascontiguousarray(codes.T)), None if extra_g is None else t(extra_g),
+                t(order), float(lives.mean()))
+    return make
+
+
+def _ivf(label, sizes, nq, p, m, h, k, extra="norms", dead=0, unused=0, seed=0):
+    def plain(a):
+        luts, probes, starts, lives, codesT, extra_g, order, _ = a
+        return ivf.ivf_scan_reference(luts, k, probes, starts, lives, codesT.t(), extra_g,
+                                      order)
+    return Case(f"IVF scan {label}", ("lsq_ivf_scan",), {"kcap": ivf.ivf_kcap(k)},
+                _ivf_make(sizes, nq, p, m, h, extra, dead, unused, seed),
+                lambda a: ivf.ivf_scan(a[0], k, *a[1:]), plain, _same)
+
+
+def _ragged(seed, nlist, lo, hi, empty, big):
+    """List sizes in [lo, hi) with `empty` lists of 0 rows and one of `big`."""
+    rng = np.random.default_rng(seed)
+    sizes = rng.integers(lo, hi, nlist)
+    sizes[rng.choice(nlist, empty, replace=False)] = 0
+    sizes[np.argmax(sizes)] = big
+    return sizes
+
+
 def _l2(dtype, wide):
     elems = 512 // torch.tensor([], dtype=dtype).element_size()
 
@@ -475,6 +541,16 @@ CASES: tuple[Case, ...] = (
     _k4("m=16 h=1024 n=5000 nq=6 int32 rank=300 cap=1024", 5000, 6, 16, 1024, torch.int32,
         300, 1024, 43),
     _key_route(350, 2048),
+    _ivf("m=7 h=256 nq=33 p=12 k=10, ragged and empty lists, -1 slots, tombstones",
+         _ragged(50, 40, 1, 300, 6, 1500), 33, 12, 7, 256, 10, dead=200, unused=3, seed=51),
+    _ivf("m=4 h=40 nq=5 p=nlist=30 k=100, no extra", _ragged(52, 30, 0, 200, 3, 700), 5, 30,
+         4, 40, 100, extra="none", seed=53),
+    _ivf("m=7 h=256 nq=3 p=4 k=2048, fewer candidates than k", _ragged(54, 20, 1, 130, 2, 400),
+         3, 4, 7, 256, 2048, dead=20, unused=1, seed=55),
+    _ivf("m=7 h=256 nq=2 p=nlist=40 k=2048, slices merged", _ragged(56, 40, 500, 1100, 1, 2000),
+         2, 40, 7, 256, 2048, dead=100, seed=57),
+    _ivf("m=16 h=256 nq=1 p=nlist=25 k=1, a slice a few chunks", _ragged(58, 25, 0, 300, 4, 900),
+         1, 25, 16, 256, 1, seed=59),
     *(_l2(dtype, wide) for dtype in (torch.bfloat16, torch.float32) for wide in (False, True)),
 )
 
@@ -488,7 +564,8 @@ def kernel_launches() -> int:
     c = launch_counts.read()
     return (sum(c[name] for name in ("ils_encode", "icm_sweeps_v2", "icm_sweeps_v1",
                                      "icm_sweeps_dissect", "scan_select", "scan_key",
-                                     "k2_filter", "k2_select", "scan_topk_dense"))
+                                     "k2_filter", "k2_select", "scan_topk_dense", "ivf_scan",
+                                     "ivf_merge"))
             + sum(ik.icm_sweeps_step.launches.values()) + l2_probe.l2_gather.launches)
 
 
@@ -546,7 +623,8 @@ def run_case(case: Case, dev, fill: str = "none") -> tuple[str | None, int]:
 # these and no kernel of PyTorch's.
 SANITIZED_KERNELS = ("ils_kernel", "icm_sweeps_kernel", "adc_scan", "dense_hist",
                      "dense_collect", "dense_tie_count", "dense_tie_take", "k2_filter",
-                     "k2_select", "scan_select", "scan_key", "l2_gather_kernel")
+                     "k2_select", "scan_select", "scan_key", "ivf_scan", "ivf_merge",
+                     "l2_gather_kernel")
 SANITIZER_TOOLS = ("memcheck", "racecheck", "initcheck", "synccheck")
 # What the sanitizer prints where it cannot instrument the card.
 SANITIZER_REFUSAL = "Device not supported"

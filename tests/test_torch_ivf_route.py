@@ -204,6 +204,53 @@ def test_device_scan_counters_advance_by_the_expected_amounts(setup, monkeypatch
     assert launch_counts.read()["ivf_rows_scanned"] == 0
 
 
+@pytest.mark.parametrize("k,cap", [(1, 32), (10, 32), (32, 32), (33, 256), (256, 256),
+                                   (257, 2048), (1000, 2048), (2048, 2048)])
+def test_ivf_kcap_takes_the_least_capacity_that_holds_k(k, cap):
+    assert tivf.ivf_kcap(k) == cap
+
+
+@pytest.mark.parametrize("k", [0, 2049, 10_000])
+def test_ivf_kcap_refuses_a_k_beyond_the_kernel_and_names_its_cap(k):
+    with pytest.raises(ValueError, match="2048"):
+        tivf.ivf_kcap(k)
+
+
+@pytest.mark.parametrize("nq,p,k,mean_rows,want", [
+    (1000, 64, 10, 610.0, 3),  # the IVF cell: about 13k rows a slice
+    (10_000, 64, 10, 610.0, 3),  # more queries fill the card alone; rows still cut
+    (100, 64, 10, 610.0, 8),  # fewer queries: slices fill the card
+    (1, 64, 10, 610.0, 256),  # one query: as many slices as the card wants, to the most
+    (33, 12, 10, 184.0, 24),
+    (1000, 32, 1000, 977.0, 2),  # chip_smoke path C at k=1000: a slice keeps >= 8k rows
+    (10_000, 1024, 1000, 977.0, 3),  # the workspace's keys cap it
+    (1000, 64, 2048, 610.0, 2),
+    (4, 1, 10, 0.0, 1),  # nothing to scan: one slice
+])
+def test_ivf_slices_from_the_shapes_the_host_knows(nq, p, k, mean_rows, want):
+    got = tivf.ivf_slices(nq, p, k, mean_rows, 132)
+    assert got == want
+    assert nq * got * k <= max(tivf._IVF_WORK_KEYS, nq * k)
+
+
+def test_ivf_scan_refuses_a_device_it_has_no_version_for(setup):
+    idx, Q, _, _ = setup
+    scan = tivf.DeviceScan(idx.ivf, "cpu")
+    with pytest.raises(ValueError, match="unsupported device"):
+        tivf.ivf_scan(idx._query_luts(Q).to("meta"), K, scan.probes(Q, NPROBE), scan.starts,
+                      scan.lives, scan.codesT, scan.extra, scan.order, scan.mean_rows)
+
+
+def test_device_scan_holds_the_planes_the_plain_version_reads_as_rows(setup):
+    """The kernel reads the codes as planes, the plain version as rows of
+    their transpose: one upload serves both."""
+    idx = setup[0]
+    scan = tivf.DeviceScan(idx.ivf, "cpu")
+    assert scan.codesT.is_contiguous()
+    assert torch.equal(scan.codesT.t(), torch.as_tensor(idx.ivf.codes_g))
+    assert scan.mean_rows == pytest.approx(float(idx.ivf.lives.mean()))
+
+
 def _tiny_run(tmp_path, configure=None):
     wl = common.workload(CELL)
     wl = dict(wl, traffic=dict(wl["traffic"], batch=50, nprobe=NPROBE, check_queries=32))

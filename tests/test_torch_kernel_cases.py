@@ -89,10 +89,11 @@ def test_every_launching_entry_point_has_a_case_for_each_value_it_accepts():
     assert {"lsq_ils_encode", "lsq_icm_sweeps_v2", "lsq_icm_sweeps_v1",
             "lsq_icm_sweeps_dissect", "lsq_icm_sweeps_step", "lsq_scan_topk",
             "lsq_k2_filter", "lsq_k2_select", "lsq_select_topk", "lsq_scan_key",
-            "lsq_l2_gather"} == set(entries)
+            "lsq_ivf_scan", "lsq_l2_gather"} == set(entries)
     assert entries["lsq_icm_sweeps_dissect"]["variant"] == {0, 1, 2, 3, 4}
     assert entries["lsq_icm_sweeps_step"]["step"] == {0, 1, 2}
     assert entries["lsq_scan_key"]["code_bytes"] == {1, 4}
+    assert entries["lsq_ivf_scan"]["kcap"] == {32, 256, 2048}
     for entry, params in entries.items():
         cases = [c for c in kc.CASES if entry in c.entries]
         assert cases, f"{entry} has no case"
@@ -138,7 +139,7 @@ def test_sanitizer_filter_names_every_kernel_in_csrc():
             with open(os.path.join(_CSRC, name)) as f:
                 kernels |= set(re.findall(r"__global__\s+void\s+(?:__launch_bounds__\(.*\)\s+)?"
                                           r"(\w+)\s*\(", f.read()))
-    assert len(kernels) == 12
+    assert len(kernels) == 14
     assert kernels == set(kc.SANITIZED_KERNELS)
 
 

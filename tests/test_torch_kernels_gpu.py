@@ -12,7 +12,8 @@ import pytest
 import torch
 
 from local_search_quantization_torch import _build
-from local_search_quantization_torch.ops import icm, luts
+from local_search_quantization_torch import ivf as tivf
+from local_search_quantization_torch.ops import icm, launch_counts, luts
 from local_search_quantization_torch.ops.icm import _condition, cost_from_luts
 from local_search_quantization_torch.ops.icm_kernels import (
     DISSECT_VARIANTS,
@@ -929,9 +930,10 @@ def test_k2_fit_rules_mirror_the_library(cuda):
 
 
 def test_serve_twin_on_the_card_answers_as_an_in_process_search(cuda, tmp_path):
-    """The serve twin on the card (K2-K4 built by its warm-up) returns, over
-    binary frames and JSON, the ids of `Index.search` on the same directory
-    in this process, and its requests launched K2 by its own count."""
+    """The serve twin on the card (K2-K4 and the IVF scan built by its
+    warm-up) returns, over binary frames and JSON, the ids of `Index.search`
+    on the same directory in this process, and its requests launched K2 and
+    (with nprobe) the IVF scan by its own count."""
     import json
     import os
     import subprocess
@@ -945,7 +947,9 @@ def test_serve_twin_on_the_card_answers_as_an_in_process_search(cuda, tmp_path):
     xt = (rng.normal(size=(3000, 32)) * 10).astype(np.float32)
     xb = (rng.normal(size=(70_000, 32)) * 10).astype(np.float32)
     path = str(tmp_path / "idx")
-    Index.build(xt, xb, "lsq", m=4, h=64, niter=2, ilsiter=4, device=cuda).save(path)
+    built = Index.build(xt, xb, "lsq", m=4, h=64, niter=2, ilsiter=4, device=cuda)
+    built.build_ivf(64)
+    built.save(path)
     Q = (rng.normal(size=(50, 32)) * 10).astype("<f4")
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     p = subprocess.Popen([sys.executable, "-m", "local_search_quantization_torch.scripts.serve",
@@ -956,20 +960,27 @@ def test_serve_twin_on_the_card_answers_as_an_in_process_search(cuda, tmp_path):
         p.stdin.write(json.dumps({"id": 1, "binary_vectors": 50, "binary": True,
                                   "dists": False}).encode() + b"\n" + Q.tobytes())
         p.stdin.write(json.dumps({"id": 2, "vectors": Q[:5].tolist(), "k": 3}).encode()
-                      + b"\nEOF\n")
+                      + b"\n")
+        p.stdin.write(json.dumps({"id": 3, "vectors": Q[:5].tolist(), "k": 3,
+                                  "nprobe": 8}).encode() + b"\nEOF\n")
         p.stdin.close()
         head = read_response(p.stdout)
         r2 = read_response(p.stdout)
+        r3 = read_response(p.stdout)
         assert p.wait(timeout=120) == 0
         err = p.stderr.read().decode()
     finally:
         p.kill()
     assert head["nq"] == 50 and head["k"] == 10 and head["binary"]["dists"] is None
     assert torch.cuda.get_device_name(0) in err and "scan_topk" in err, err
+    assert "ivf_scan" in err, err
     assert served_launches(err)["scan_topk"] > 0, err
+    assert served_launches(err)["ivf_scan"] == 1, err
     idx = Index.load(path, device=cuda)
     np.testing.assert_array_equal(head["ids"], idx.search(Q, k=10).ids.cpu().numpy())
     np.testing.assert_array_equal(np.asarray(r2["ids"]), idx.search(Q[:5], k=3).ids.cpu().numpy())
+    np.testing.assert_array_equal(np.asarray(r3["ids"]),
+                                  idx.search(Q[:5], k=3, nprobe=8).ids.cpu().numpy())
 
 
 @pytest.mark.parametrize("shards", [3, 4])
@@ -1099,6 +1110,150 @@ def test_host_syncs_count_every_sync_the_card_flags(cuda, sync_index, call):
     counts = launch_counts.read()
     assert counts["host_syncs"] == len(flagged), flagged
     assert counts["add_calls" if call == "add" else "search_calls"] == 1
-    assert len(flagged) >= 1
     if call == "search_ivf":
-        assert counts["ivf_queries"] == Q.shape[0] and counts["ivf_rows_scanned"] > 0
+        # The probed scan's kernel reads nothing back: no sync on the route.
+        assert flagged == [] and counts["host_syncs"] == 0
+        scan = idx._ivf_device_state()[0]
+        probes = scan.probes(Q, 8).cpu().numpy()
+        assert counts["ivf_queries"] == Q.shape[0]
+        assert counts["ivf_rows_scanned"] == int(idx.ivf.lives[probes].sum())
+        assert counts["ivf_scan"] == 1 and counts["ivf_merge"] <= 1
+    else:
+        assert len(flagged) >= 1
+
+
+# ---------------------------------------------------------------------------
+# The IVF probed scan (csrc/ivf_scan.cu) against its plain version.
+
+
+def _ivf_inputs(dev, sizes, nq, p, m, h, extra="norms", dead=0, unused=0, seed=0):
+    return kernel_cases._ivf_make(np.asarray(sizes), nq, p, m, h, extra, dead, unused,
+                                  seed)(dev)
+
+
+def _ivf_same(a, k):
+    """The kernel's (dists, ids) bit for bit the plain version's, on the
+    same CUDA tensors; returns them."""
+    luts_, probes, starts, lives, codesT, extra, order, mean_rows = a
+    got = tivf.ivf_scan(luts_, k, probes, starts, lives, codesT, extra, order, mean_rows)
+    want = tivf.ivf_scan_reference(luts_, k, probes, starts, lives, codesT.t(), extra, order)
+    torch.cuda.synchronize()
+    assert got.dists.dtype == torch.float32 and got.ids.dtype == torch.int64
+    assert torch.equal(got.dists, want.dists)
+    assert torch.equal(got.ids, want.ids)
+    return got
+
+
+def _sizes(seed, nlist, lo, hi, empty=0, big=None):
+    return kernel_cases._ragged(seed, nlist, lo, hi, empty, big if big is not None else hi)
+
+
+@pytest.mark.parametrize("nq,p,m,h,k,extra,dead,unused", [
+    (33, 12, 7, 256, 10, "norms", 300, 3),  # tombstones and -1 slots
+    (33, 12, 7, 256, 10, "none", 0, 0),  # a PQ store: no extra
+    (64, 40, 7, 256, 1000, "norms", 50, 5),  # fewer candidates than k for some
+    (7, 20, 4, 40, 100, "norms", 10, 2),  # m != 7, h < 256
+    (5, 20, 16, 256, 300, "none", 0, 1),  # two batches of code planes
+    (9, 20, 9, 16, 33, "norms", 0, 0),  # h = 16, the smallest k of the 256 build
+])
+def test_ivf_scan_matches_plain_version(cuda, nq, p, m, h, k, extra, dead, unused):
+    sizes = _sizes(nq + p + m, 60, 0, 400, empty=5, big=2500)
+    _ivf_same(_ivf_inputs(cuda, sizes, nq, p, m, h, extra, dead, unused, seed=k), k)
+
+
+@pytest.mark.parametrize("k", [1, 10, 1000, 2048])
+def test_ivf_scan_one_query_over_every_list(cuda, k):
+    """nq = 1, nprobe = nlist: the most slices a query, many of them empty
+    of chunks at small k."""
+    sizes = _sizes(k, 50, 0, 900, empty=4, big=3000)
+    _ivf_same(_ivf_inputs(cuda, sizes, 1, 50, 7, 256, "norms", 40, 0, seed=k), k)
+
+
+@pytest.mark.parametrize("k", [10, 1000])
+def test_ivf_scan_ties_at_the_kth_distance_from_duplicated_codes(cuda, k):
+    """3k rows across the lists share one code row and the least extra: the
+    k-th distance is tied far beyond k, and the ids decide: the lowest."""
+    a = list(_ivf_inputs(cuda, _sizes(3, 40, 100, 600), 17, 40, 7, 256, "norms", 0, 0, 4))
+    order, codesT, extra = a[6], a[4], a[5]
+    live = torch.nonzero(order >= 0)[:, 0]
+    dup = live[torch.randperm(live.numel(), generator=torch.Generator().manual_seed(5))[:3 * k]
+               .to(live.device)]
+    codesT[:, dup] = codesT[:, live[:1]]
+    extra[dup] = -100.0
+    got = _ivf_same(a, k)
+    want = torch.sort(order[dup]).values[:k]
+    assert torch.equal(got.ids[0], want)
+
+
+def test_ivf_scan_continuous_tables(cuda):
+    a = list(_ivf_inputs(cuda, _sizes(8, 80, 0, 700, empty=3), 100, 16, 7, 256, "norms", 100,
+                         2, 8))
+    a[0] = torch.randn(a[0].shape, generator=torch.Generator().manual_seed(0)).to(cuda)
+    a[5] = torch.where(torch.isfinite(a[5]), a[5] * 0.37, a[5])
+    for k in (10, 100):
+        _ivf_same(a, k)
+
+
+def test_ivf_scan_at_the_benchmark_cells_proportions(cuda):
+    """1000 queries, nprobe 64 of 2048 lists of ~600 rows (the IVF cell's
+    list sizes on a smaller store), k=10: ten slices a query and the merge."""
+    sizes = _sizes(11, 2048, 300, 900, empty=0, big=11_000)
+    launch_counts.zero()
+    _ivf_same(_ivf_inputs(cuda, sizes, 1000, 64, 7, 256, "norms", 1000, 0, 12), 10)
+    counts = launch_counts.read()
+    assert counts["ivf_scan"] == 1 and counts["ivf_merge"] == 1
+
+
+def test_ivf_scan_refuses_k_above_its_cap(cuda):
+    a = _ivf_inputs(cuda, _sizes(1, 10, 0, 100), 2, 3, 7, 256)
+    with pytest.raises(ValueError, match="2048"):
+        tivf.ivf_scan(a[0], 2049, *a[1:])
+
+
+def test_ivf_scan_counts_rows_on_the_card_and_makes_no_host_sync(cuda):
+    """Under `set_sync_debug_mode("error")` the call never waits; its rows
+    reach `ivf_rows_scanned` through the device counter at the read."""
+    import warnings
+
+    sizes = _sizes(2, 30, 0, 500, empty=2)
+    a = _ivf_inputs(cuda, sizes, 20, 6, 7, 256, "norms", 0, 2, 3)
+    tivf.ivf_scan(a[0], 10, *a[1:])  # builds the library, makes the counter
+    torch.cuda.synchronize()
+    probes = a[1].cpu().numpy()
+    rows = int(np.asarray(sizes)[probes[probes >= 0]].sum())
+    with warnings.catch_warnings(record=True):
+        torch.cuda.set_sync_debug_mode("warn")
+        torch.cuda.set_sync_debug_mode("default")
+    launch_counts.zero()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        tivf.ivf_scan(a[0], 10, *a[1:])
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    counts = launch_counts.read()
+    assert counts["ivf_rows_scanned"] == rows and counts["ivf_queries"] == 20
+    assert counts["host_syncs"] == 0
+
+
+def test_ivf_route_on_the_card_never_runs_the_plain_scan(cuda, sync_index, monkeypatch):
+    """`Index.search(nprobe=)` on a CUDA index launches the kernel on every
+    call, at k = 1, 10, 1000 and the cap; the plain scan is never taken."""
+    idx, Q, _ = sync_index
+    if idx.ivf is None:
+        idx.build_ivf(256)
+
+    def plain(*args, **kw):
+        raise AssertionError("the plain probed scan ran on the card")
+    monkeypatch.setattr(tivf, "ivf_scan_reference", plain)
+    for k in (1, 10, 1000, 2048):
+        launch_counts.zero()
+        res = idx.search(Q[:50], k=k, nprobe=16)
+        assert launch_counts.read()["ivf_scan"] == 1
+        assert res.ids.dtype == torch.int64 and tuple(res.ids.shape) == (50, k)
+    with pytest.raises(ValueError, match="2048"):
+        idx.search(Q[:5], k=2049, nprobe=16)
+
+
+def test_ivf_scan_rules_mirror_the_library(cuda):
+    lib = _build.load("ivf_scan")
+    assert lib.lsq_ivf_lut_max_bytes() == tivf._IVF_LUT_MAX_BYTES
