@@ -33,13 +33,10 @@ nothing of JAX. Phases:
    and at the SIFT width of phase 2b: codes identical, the per-row sink
    identical for "nowrite" and within 1e-5 for the score sums, "full"
    identical to K5; each variant's time on a table stacked once, beside
-   K5's and K6's wrappers in the same phase; K5 at each stage of its
-   redesign (`icm_sweeps_step`: the first port's visit, the same with its
-   loads hoisted, the packed kernel that runs), codes identical, timed in
-   turns; and for every one of these builds its registers (ptxas), the
-   table loads in its SASS and how many of them the schedule serializes
-   (cuobjdump): the builds that run must show a visit's 8 row loads with
-   none serialized;
+   K5's and K6's wrappers in the same phase; and for every one of these
+   builds its registers (ptxas), the table loads in its SASS and how many
+   of them the schedule serializes (cuobjdump): each must show a visit's 8
+   row loads with none serialized;
 2d. the L2 gather probe (`csrc/l2_probe.cu`): its sums against its plain
    version, then the rate at which L2 serves random 512 B bf16 rows of a
    6.4 MB table (K1, K5, K6) and 1 KB f32 rows of a 12.8 MB table, one
@@ -604,9 +601,8 @@ SINK_RTOL = 1e-5
 def compare_k7(torch, args, label, time_it):
     """K7's variants against the plain version, and "full" against K5, on
     the same codes; with time_it, each variant's time on a table stacked
-    once, K5's and K6's wrappers and K5's earlier stages (`icm_sweeps_step`,
-    codes identical to K5's) beside them. Returns (max error, full ms, plain
-    full ms, {name: ms})."""
+    once, K5's and K6's wrappers beside them. Returns (max error, full ms,
+    plain full ms, {name: ms})."""
     from local_search_quantization_torch.ops import icm_kernels as ik
 
     B, u, b16, order = args
@@ -631,22 +627,10 @@ def compare_k7(torch, args, label, time_it):
               f"{sink_ok}){', identical to K5: ' + str(same_k5) if variant == 'full' else ''}")
         check(rows == 0 and sink_ok and same_k5,
               f"K7 {variant} {label}: kernel and plain version (or K5) disagree")
-    for step in ik.SWEEP_STEPS:
-        codes = ik.icm_sweeps_step(B, u, stacked, order, icmiter=ICMITER, step=step)
-        torch.cuda.synchronize()
-        rows = int((codes != k5).any(1).sum())
-        print(f"K5 stage {step!r} {label}: rows with other codes than K5 {rows}")
-        check(rows == 0, f"K5 stage {step} {label}: codes differ from K5's")
     if not time_it:
         return err, None, None, {}
     ms = {v: cuda_ms(torch, lambda v=v: ik.icm_sweeps_dissect(
         B, u, stacked, order, icmiter=ICMITER, variant=v), 5) for v in ik.DISSECT_VARIANTS}
-    # The stages in turns, twice: interleaved, hoisted, packed, and back.
-    turns = {step: [] for step in ik.SWEEP_STEPS}
-    for step in ik.SWEEP_STEPS + ik.SWEEP_STEPS[::-1]:
-        turns[step].append(cuda_ms(torch, lambda step=step: ik.icm_sweeps_step(
-            B, u, stacked, order, icmiter=ICMITER, step=step), 5))
-    ms.update({step: min(t) for step, t in turns.items()})
     ms["K5 wrapper"] = cuda_ms(torch, lambda: ik.fused_icm_sweeps(
         *args, icmiter=ICMITER, variant="v2"), 5)
     ms["K6 wrapper"] = cuda_ms(torch, lambda: ik.fused_icm_sweeps(
@@ -661,9 +645,6 @@ def compare_k7(torch, args, label, time_it):
     print(f"[{CARD}] K7 {label} beside: K5 wrapper (stacks the table each call) "
           f"{ms['K5 wrapper']:.3f} ms, K6 wrapper {ms['K6 wrapper']:.3f} ms, the stacking "
           f"alone {ms['stack']:.3f} ms; plain full {plain:.3f} ms")
-    print(f"[{CARD}] K5's redesign stage by stage {label}, table stacked once, each timed "
-          "twice in turns (ms): " + ", ".join(
-              f"{step} {turns[step][0]:.3f} / {turns[step][1]:.3f}" for step in ik.SWEEP_STEPS))
     ms["K5"], ms["K6"] = ms["K5 wrapper"], ms["K6 wrapper"]
     return err, ms["full"], plain, ms
 
@@ -736,40 +717,35 @@ def sass_table_loads(lib: str, pattern: str, select, is_table_load) -> dict:
 
 
 # An instantiation of csrc/icm_sweeps.cu's kernel template in a mangled name:
-# <VARIANT, CPL, DISSECT, STEP, VEC>.
-SWEEPS_KERNEL = r"icm_sweeps_kernelILi(\d)ELi(\d+)ELi(\d)ELi(\d)ELb([01])EE"
-# The 8-candidates-a-lane builds that phase 2c reads: (layout, switch, step,
-# vector loads), layout 2 for K5's table and 1 for K6's, switch 0 for K5/K6
-# and 1-5 for K7's variants, step 2 the kernel that runs.
-SWEEPS_BUILDS = {"K5": (2, 0, 2, 1), "K6": (1, 0, 2, 1), "full": (2, 1, 2, 1),
-                 "predwrite": (2, 2, 2, 1), "nowrite": (2, 3, 2, 1),
-                 "noargmin": (2, 4, 2, 1), "mmonly": (2, 5, 2, 1),
-                 "interleaved": (2, 0, 0, 0), "hoisted": (2, 0, 1, 0)}
+# <VARIANT, CPL, DISSECT, VEC>.
+SWEEPS_KERNEL = r"icm_sweeps_kernelILi(\d)ELi(\d+)ELi(\d)ELb([01])EE"
+# The 8-candidates-a-lane vector builds that phase 2c reads: (layout,
+# switch), layout 2 for K5's table and 1 for K6's, switch 0 for K5/K6 and
+# 1-5 for K7's variants.
+SWEEPS_BUILDS = {"K5": (2, 0), "K6": (1, 0), "full": (2, 1), "predwrite": (2, 2),
+                 "nowrite": (2, 3), "noargmin": (2, 4), "mmonly": (2, 5)}
 
 
 def _sweeps_key(groups):
-    """(layout, switch, step, vec) of an 8-candidates-a-lane sweeps build."""
-    v, cpl, d, step, vec = (int(g) for g in groups)
-    return (v, d, step, vec) if cpl == 8 else None
+    """(layout, switch) of an 8-candidates-a-lane vector sweeps build."""
+    v, cpl, d, vec = (int(g) for g in groups)
+    return (v, d) if cpl == 8 and vec else None
 
 
 def sweeps_registers() -> dict:
-    """{(layout, switch, step, vec): registers} of the 8-candidates-a-lane
+    """{(layout, switch): registers} of the 8-candidates-a-lane vector
     instantiations, from ptxas's lines in the build log."""
     return ptxas_registers("icm_sweeps", SWEEPS_KERNEL, _sweeps_key)
 
 
 def k7_sass() -> dict:
-    """What the SASS of the 8-candidates-a-lane sweeps instantiations issues
-    for the bf16 table: {(layout, switch, step, vec): (table loads,
-    serialized loads, longest run)}. A vector build loads a lane's share of
-    a row in one 16-byte load (LDG.E.128.CONSTANT; the unaries' staging
-    loads are streaming, not CONSTANT), the others in eight 2-byte loads
-    (U16), so the first count is rows for the one and values for the
-    other."""
-    return sass_table_loads(
-        "icm_sweeps", SWEEPS_KERNEL, _sweeps_key,
-        lambda key, x: (".128" in x and "CONSTANT" in x) if key[3] else "U16" in x)
+    """What the SASS of the 8-candidates-a-lane vector sweeps
+    instantiations issues for the bf16 table: {(layout, switch): (table
+    loads, serialized loads, longest run)}. A lane loads its share of a row
+    in one 16-byte load (LDG.E.128.CONSTANT; the unaries' staging loads are
+    streaming, not CONSTANT), so the count is rows."""
+    return sass_table_loads("icm_sweeps", SWEEPS_KERNEL, _sweeps_key,
+                            lambda key, x: ".128" in x and "CONSTANT" in x)
 
 
 def phase_k7(torch, C, data, dev):
@@ -788,24 +764,18 @@ def phase_k7(torch, C, data, dev):
     serr, ms, plain, times = compare_k7(torch, sweeps_args(torch, X, C, B0, 15),
                                         "SIFT width", True)
     sass, regs = k7_sass(), sweeps_registers()
-    print(f"[{CARD}] K5, K6, K7 and K5's earlier stages at n={K1_N}, {ICMITER} sweeps "
-          "(8 candidates a lane; table loads in the SASS, one 16-byte load a row for "
-          "the vector builds and eight 2-byte loads a row for the two strided stages; "
-          "serialized: a register of the load is read before the next table load "
-          "issues): " + "; ".join(
+    print(f"[{CARD}] K5, K6 and K7 at n={K1_N}, {ICMITER} sweeps (8 candidates a "
+          "lane; table loads in the SASS, one 16-byte load a row; serialized: a "
+          "register of the load is read before the next table load issues): " + "; ".join(
               f"{name} {times[name]:.3f} ms, {regs.get(key, '?')} registers, "
               f"{sass[key][0]} loads ({sass[key][1]} serialized)"
               for name, key in SWEEPS_BUILDS.items() if key in sass))
+    # The kernel keeps all m - 1 rows of a visit in flight (one chunk of 8
+    # row slots at m=7): every variant, and K5 and K6, must show its 8 row
+    # loads with none serialized.
     for name, key in SWEEPS_BUILDS.items():
-        check(key in sass and sass[key][0] >= (8 if key[3] or name == "hoisted" else 1),
-              f"{name}: its build or its table loads are missing from the SASS: {sass}")
-    # The kernel that runs keeps all m - 1 rows of a visit in flight (one
-    # chunk of 8 row slots at m=7): every variant, and K5 and K6, must show
-    # its 8 row loads with none serialized.
-    for name, key in SWEEPS_BUILDS.items():
-        if key[2] == 2:
-            check(sass[key][:2] == (8, 0),
-                  f"{name}: expected 8 row loads, none serialized, got {sass[key]}")
+        check(key in sass and sass[key][:2] == (8, 0),
+              f"{name}: expected 8 row loads, none serialized, got {sass.get(key)}: {sass}")
     return max(err, serr), ms, plain
 
 
@@ -937,7 +907,7 @@ def phase_k2_grid(torch, luts, Bt8, Bt32, extra, want1000):
         want = want1000 if k == K else sk.scan_topk_reference(luts, Bt8, extra, k)
         for nq in (1, 32, K2_QUERIES):
             lq = luts[:nq].contiguous()
-            failed, dense = sk.scan_topk.failed, sk.scan_topk.dense_launches
+            before = k2_dense_counts()
             for name, Bt in (("uint8", Bt8), ("int32", Bt32)):
                 d, i = sk.scan_topk(lq, Bt, extra, k)
                 k3 = sk.scan_select(lq, Bt, extra, k)
@@ -948,16 +918,16 @@ def phase_k2_grid(torch, luts, Bt8, Bt32, extra, want1000):
                       f"plain version {same}, K3 sorted {same_k3}")
             # Every query certified: the answers above came from the staged
             # kernels, and the dense path (exact by construction) never ran.
-            check(sk.scan_topk.failed == failed and sk.scan_topk.dense_launches == dense,
-                  f"K2 at nq={nq}, k={k}: {sk.scan_topk.failed - failed} queries failed "
-                  f"the certificate, {sk.scan_topk.dense_launches - dense} dense launches")
+            failed, dense = (a - b for a, b in zip(k2_dense_counts(), before))
+            check(failed == dense == 0, f"K2 at nq={nq}, k={k}: {failed} queries failed "
+                  f"the certificate, {dense} dense launches")
             t0, cap = sk.warm_bound(lq, Bt8, extra, k=k)
             cand, count = sk.k2_filter(lq, Bt8, extra, t0, cap)
             if nq == K2_QUERIES:
                 check_k2_stages(torch, lq, Bt8, extra, t0, cap, k, cand, count)
             ms = {"k2": cuda_ms(torch, lambda: sk.scan_topk(lq, Bt8, extra, k), 5)}
             mem = peak_gib(torch, lambda: sk.scan_topk(lq, Bt8, extra, k))
-            check(sk.scan_topk.failed == failed and sk.scan_topk.dense_launches == dense,
+            check(k2_dense_counts() == before,
                   f"K2 at nq={nq}, k={k}: the timed K2 calls ran the dense path")
             ms.update(
                 dense=cuda_ms(torch, lambda: sk.scan_topk_dense(lq, Bt8, extra, k), 3),
@@ -1009,11 +979,11 @@ def phase_k2_rerun(torch, C, luts, gen, dev):
     del B
     lq = luts[:nq].contiguous()
     want = sk.scan_topk_reference(lq, Bt, extra, k)
-    launches = sk.scan_topk.dense_launches
+    launches = read_counters()["scan_topk_dense"]
     d, i = sk.scan_topk_dense(lq, Bt, extra, k)
     torch.cuda.synchronize()
     check(torch.equal(d, want[0]) and torch.equal(i, want[1]) and
-          sk.scan_topk.dense_launches == launches + 1,
+          read_counters()["scan_topk_dense"] == launches + 1,
           f"K2's dense path at nq={nq}, n={n}, k={k} disagrees with its plain version")
     ms = cuda_ms(torch, lambda: sk.scan_topk_dense(lq, Bt, extra, k), 10)
     plain = cuda_ms(torch, lambda: sk.scan_topk_reference(lq, Bt, extra, k), 1)
@@ -1239,12 +1209,13 @@ def check_key(torch, label, luts, Bt, extra, t0, cap, k2_out):
                                        append_cap=cap)
     ok = ~bad
     same_ok = torch.equal(d[ok], k2_out[0][ok]) and torch.equal(i[ok], k2_out[1][ok])
-    launches = sk.scan_select.launches
+    launches = read_counters()["scan_select"]
     fd, fi = sk.scan_topk_warm(luts, Bt, extra, k=K, variant="key")
     same_all = torch.equal(fd, k2_out[0]) and torch.equal(fi, k2_out[1])
     print(f"K4 {label} key variant: {int(ok.sum())} of {ok.numel()} queries certified, "
           f"identical to K2 {same_ok}; scan_topk_warm (the other {int(bad.sum())} rerun "
-          f"on K3, {sk.scan_select.launches - launches} K3 launches with the pre-scan) "
+          f"on K3, {read_counters()['scan_select'] - launches} K3 launches with the "
+          "pre-scan) "
           f"identical to K2 on all {same_all}")
     check(same_ok and same_all and bool(any_bad) == bool(bad.any()),
           f"K4 {label}: the key variant's answer is not K2's")
@@ -1591,6 +1562,12 @@ def read_counters() -> dict:
     from local_search_quantization_torch.ops import launch_counts
 
     return launch_counts.read()
+
+
+def k2_dense_counts() -> tuple[int, int]:
+    """(queries rerun after K2's certificate failed, K2's dense launches)."""
+    c = read_counters()
+    return c["scan_topk_failed"], c["scan_topk_dense"]
 
 
 def reruns_since(before: dict) -> dict:
@@ -2008,11 +1985,8 @@ def cli_replay(torch, idx, batches, served_lat, big, served_key, mutation):
     in this process: every response's ids and distances must be the served
     ones bit for bit (same code, same card). A check of parity only: the
     path's launches are the servers' own counts."""
-    from local_search_quantization_torch.ops.select_kernels import scan_topk
-
     rows, added, gone, q0, served_after = mutation
     torch.cuda.synchronize()
-    failed = scan_topk.failed
     before = read_counters()
     ms, same = [], True
     for Q, resp in zip(batches, served_lat):
@@ -2022,7 +1996,8 @@ def cli_replay(torch, idx, batches, served_lat, big, served_key, mutation):
                  and np.array_equal(dists, np.asarray(resp["dists"], np.float32)))
     print_latency("in this process (Index.search + fetch)", batches, ms)
     print(f"path E replay latency: ids and dists identical to the served JSON {same}; "
-          f"queries rerun after a failed K2 certificate {scan_topk.failed - failed}, reruns "
+          "queries rerun after a failed K2 certificate "
+          f"{read_counters()['scan_topk_failed'] - before['scan_topk_failed']}, reruns "
           f"{reruns_since(before)}")
     check(same, "path E: a served latency response differs from Index.search")
     for name, (kw, Q, resp, _) in big.items():
@@ -2682,9 +2657,8 @@ def path_a_skip_share(torch, demo, data, dev, info):
         counts[1] += needed.numel()
         return kernel(*args, **kw)
 
-    # The wrapper counts its launches under its module name, `counted` while
-    # it stands there: the replay's launches stay out of every path's count.
-    counted.launches = 0
+    # The replay runs outside every counted window: each path zeroes the
+    # counters where it starts.
     icm_kernels.ils_encode_streamed = counted
     try:
         enc = icm.encode_chunked(gen, Xb, B0, info["lsq"].C, ilsiter=MAIN["ilsiter_base"],

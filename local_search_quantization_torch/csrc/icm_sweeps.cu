@@ -59,13 +59,6 @@
 // neither the loads' round trips nor the occupancy sets its time any more,
 // and both would add registers or traffic for nothing.
 //
-// STEP keeps the stages of that redesign as builds of K5 that one run can
-// time side by side (entry point lsq_icm_sweeps_step, a measurement tool on
-// no path): kInterleaved is the first port's loop, kHoisted the same lane map
-// with a visit's loads issued before its adds (the test of whether the
-// serialized loads, and not the 2-byte width, cost the time), kPacked the
-// design above, which is what K5, K6 and K7 run.
-//
 // K7: timing dissections of K5's visit (replaces
 // benchmarks/bench_kernel_variants.py:kernel, entry point
 // lsq_icm_sweeps_dissect). The same kernel with a DISSECT switch that takes
@@ -109,13 +102,10 @@ __device__ __forceinline__ float bf16_bits_to_f32(unsigned short b) {
 // K7's switches; kProduction is K5 and K6 as they run on the encode path.
 enum Dissect { kProduction, kWhole, kPredWrite, kNoWrite, kNoArgmin, kMmOnly };
 
-// The stages of the redesign (see the head of this file); kPacked runs.
-enum Step { kInterleaved, kHoisted, kPacked };
-
-// Candidate t of a lane: consecutive (kPacked) or strided by 32.
-template <int CPL, int STEP>
+// Candidate t of a lane: the CPL consecutive candidates from lane * CPL.
+template <int CPL>
 __device__ __forceinline__ int cand(int lane, int t) {
-  return STEP == kPacked ? lane * CPL + t : lane + 32 * t;
+  return lane * CPL + t;
 }
 
 // A lane's share of one bf16 table row, in registers: CPL/2 words of two
@@ -136,15 +126,14 @@ struct RowRegs {
 
 // Table rows a visit keeps in flight at once: all m-1 up to 8, fewer where a
 // row takes many registers.
-template <int CPL, int STEP, bool VEC>
+template <int CPL, bool VEC>
 struct RowsInFlight {
   static constexpr int kByRegs = 32 / RowRegs<CPL, VEC>::kWords;
-  static constexpr int value =
-      STEP == kHoisted ? 8 : (kByRegs > 8 ? 8 : (kByRegs < 1 ? 1 : kByRegs));
+  static constexpr int value = kByRegs > 8 ? 8 : (kByRegs < 1 ? 1 : kByRegs);
 };
 
 // Load a lane's share of table row r; candidates at or past h read as 0.
-template <int CPL, int STEP, bool VEC>
+template <int CPL, bool VEC>
 __device__ __forceinline__ void load_row(const unsigned short* __restrict__ r, int lane, int h,
                                          RowRegs<CPL, VEC>& row) {
   if constexpr (VEC) {
@@ -172,14 +161,14 @@ __device__ __forceinline__ void load_row(const unsigned short* __restrict__ r, i
   } else {
 #pragma unroll
     for (int t = 0; t < CPL; ++t) {
-      const int c = cand<CPL, STEP>(lane, t);
+      const int c = cand<CPL>(lane, t);
       row.w[t] = c < h ? static_cast<uint32_t>(__ldg(&r[c])) : 0u;
     }
   }
 }
 
 // A lane's unaries of codebook j from shared memory; +inf at or past h.
-template <int CPL, int STEP, bool VEC>
+template <int CPL, bool VEC>
 __device__ __forceinline__ void load_unaries(const float* uj, int lane, int h,
                                              float (&uv)[CPL]) {
   if constexpr (VEC && CPL >= 4) {
@@ -196,7 +185,7 @@ __device__ __forceinline__ void load_unaries(const float* uj, int lane, int h,
   } else {
 #pragma unroll
     for (int t = 0; t < CPL; ++t) {
-      const int c = cand<CPL, STEP>(lane, t);
+      const int c = cand<CPL>(lane, t);
       uv[t] = c < h ? uj[c] : INFINITY;
     }
   }
@@ -204,14 +193,14 @@ __device__ __forceinline__ void load_unaries(const float* uj, int lane, int h,
 
 // VARIANT 2: K5 (j-stacked table, pair rows first, then the unary).
 // VARIANT 1: K6 ([m, m, h, h] table, unary first).
-template <int VARIANT, int CPL, int DISSECT, int STEP, bool VEC>
+template <int VARIANT, int CPL, int DISSECT, bool VEC>
 __global__ void __launch_bounds__(kWarps * 32)
 icm_sweeps_kernel(const int* __restrict__ B, const float* __restrict__ unaries,
                   const unsigned short* __restrict__ lut, const int* __restrict__ visits,
                   int n, int m, int h, int nvisit, int* __restrict__ out_b,
                   float* __restrict__ sink) {
   static_assert(DISSECT == kProduction || VARIANT == 2, "K7 dissects K5's visit");
-  static_assert(!VEC || (STEP == kPacked && CPL >= 2), "vector loads need the packed map");
+  static_assert(!VEC || CPL >= 2, "vector loads need two candidates a lane");
   extern __shared__ __align__(16) float smem[];
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
@@ -228,7 +217,7 @@ icm_sweeps_kernel(const int* __restrict__ B, const float* __restrict__ unaries,
       reinterpret_cast<float4*>(u)[e] = __ldcs(reinterpret_cast<const float4*>(urow) + e);
   } else {
     for (int e = lane; e < mh; e += 32)
-      u[e] = STEP == kInterleaved ? urow[e] : __ldcs(&urow[e]);
+      u[e] = __ldcs(&urow[e]);
   }
   if (lane < m) cur[lane] = B[static_cast<size_t>(row) * m + lane];
   __syncwarp();
@@ -239,71 +228,43 @@ icm_sweeps_kernel(const int* __restrict__ B, const float* __restrict__ unaries,
     const int j = __ldg(&visits[s]);
     if (static_cast<unsigned>(j) >= static_cast<unsigned>(m)) continue;
     float acc[CPL];
-    if constexpr (STEP == kInterleaved) {
-      // The first port's visit: each load feeds its add.
+    constexpr int kRows = RowsInFlight<CPL, VEC>::value;
+    float uv[CPL];  // +inf at or past h, so those candidates never win
+    load_unaries<CPL, VEC>(u + j * h, lane, h, uv);
 #pragma unroll
-      for (int t = 0; t < CPL; ++t) {
-        const int c = lane + 32 * t;
-        acc[t] = VARIANT == 1 ? (c < h ? u[j * h + c] : INFINITY) : 0.0f;
-      }
-      for (int k = 0; k < m; ++k) {
-        if (k == j) continue;
-        const unsigned short* r =
-            VARIANT == 2
-                ? lut + (static_cast<size_t>(j) * mh + static_cast<size_t>(k) * h + cur[k]) * h
-                : lut + ((static_cast<size_t>(k) * m + j) * h + cur[k]) * h;
+    for (int t = 0; t < CPL; ++t) acc[t] = VARIANT == 1 ? uv[t] : 0.0f;
+    // The visit's m-1 rows are those of k = kk + (kk >= j), kk = 0..m-2,
+    // in k order; kRows of them are loaded before any is added.
+    for (int kk0 = 0; kk0 < m - 1; kk0 += kRows) {
+      RowRegs<CPL, VEC> rows[kRows];
 #pragma unroll
-        for (int t = 0; t < CPL; ++t) {
-          const int c = lane + 32 * t;
-          if (c < h) acc[t] += bf16_bits_to_f32(__ldg(&r[c]));
+      for (int i = 0; i < kRows; ++i) {
+        const int kk = kk0 + i;
+        if (kk < m - 1) {
+          const int k = kk + (kk >= j);
+          const unsigned short* r =
+              VARIANT == 2
+                  ? lut + (static_cast<size_t>(j) * mh + static_cast<size_t>(k) * h + cur[k]) * h
+                  : lut + ((static_cast<size_t>(k) * m + j) * h + cur[k]) * h;
+          load_row<CPL, VEC>(r, lane, h, rows[i]);
         }
       }
-      if (VARIANT == 2) {
 #pragma unroll
-        for (int t = 0; t < CPL; ++t) {
-          const int c = lane + 32 * t;
-          acc[t] = c < h ? u[j * h + c] + acc[t] : INFINITY;
+      for (int i = 0; i < kRows; ++i) {
+        if (kk0 + i < m - 1) {
+#pragma unroll
+          for (int t = 0; t < CPL; ++t) acc[t] += rows[i].value(t);
         }
       }
-    } else {
-      constexpr int kRows = RowsInFlight<CPL, STEP, VEC>::value;
-      float uv[CPL];  // +inf at or past h, so those candidates never win
-      load_unaries<CPL, STEP, VEC>(u + j * h, lane, h, uv);
+    }
+    if constexpr (VARIANT == 2) {
 #pragma unroll
-      for (int t = 0; t < CPL; ++t) acc[t] = VARIANT == 1 ? uv[t] : 0.0f;
-      // The visit's m-1 rows are those of k = kk + (kk >= j), kk = 0..m-2,
-      // in k order; kRows of them are loaded before any is added.
-      for (int kk0 = 0; kk0 < m - 1; kk0 += kRows) {
-        RowRegs<CPL, VEC> rows[kRows];
-#pragma unroll
-        for (int i = 0; i < kRows; ++i) {
-          const int kk = kk0 + i;
-          if (kk < m - 1) {
-            const int k = kk + (kk >= j);
-            const unsigned short* r =
-                VARIANT == 2
-                    ? lut + (static_cast<size_t>(j) * mh + static_cast<size_t>(k) * h + cur[k]) * h
-                    : lut + ((static_cast<size_t>(k) * m + j) * h + cur[k]) * h;
-            load_row<CPL, STEP, VEC>(r, lane, h, rows[i]);
-          }
-        }
-#pragma unroll
-        for (int i = 0; i < kRows; ++i) {
-          if (kk0 + i < m - 1) {
-#pragma unroll
-            for (int t = 0; t < CPL; ++t) acc[t] += rows[i].value(t);
-          }
-        }
-      }
-      if constexpr (VARIANT == 2) {
-#pragma unroll
-        for (int t = 0; t < CPL; ++t) acc[t] = uv[t] + acc[t];
-      }
+      for (int t = 0; t < CPL; ++t) acc[t] = uv[t] + acc[t];
     }
     if constexpr (DISSECT == kMmOnly || DISSECT == kNoArgmin) {
 #pragma unroll
       for (int t = 0; t < CPL; ++t) {
-        if (cand<CPL, STEP>(lane, t) < h) lane_sum += acc[t];
+        if (cand<CPL>(lane, t) < h) lane_sum += acc[t];
       }
       if constexpr (DISSECT == kNoArgmin) {
         __syncwarp();
@@ -314,12 +275,12 @@ icm_sweeps_kernel(const int* __restrict__ B, const float* __restrict__ unaries,
     }
     // A lane's candidates ascend with t, so a strict < keeps its lowest c.
     float bv = acc[0];
-    int bc = cand<CPL, STEP>(lane, 0) < h ? cand<CPL, STEP>(lane, 0) : INT_MAX;
+    int bc = cand<CPL>(lane, 0) < h ? cand<CPL>(lane, 0) : INT_MAX;
 #pragma unroll
     for (int t = 1; t < CPL; ++t) {
       if (acc[t] < bv) {
         bv = acc[t];
-        bc = cand<CPL, STEP>(lane, t);
+        bc = cand<CPL>(lane, t);
       }
     }
     warp_argmin(bv, bc);
@@ -350,11 +311,11 @@ icm_sweeps_kernel(const int* __restrict__ B, const float* __restrict__ unaries,
   }
 }
 
-template <int VARIANT, int CPL, int DISSECT, int STEP, bool VEC>
+template <int VARIANT, int CPL, int DISSECT, bool VEC>
 int launch(const void* B, const void* unaries, const void* lut, const void* visits, int n,
            int m, int h, int nvisit, void* out_b, void* sink, cudaStream_t stream,
            int smem) {
-  auto kernel = icm_sweeps_kernel<VARIANT, CPL, DISSECT, STEP, VEC>;
+  auto kernel = icm_sweeps_kernel<VARIANT, CPL, DISSECT, VEC>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -379,14 +340,13 @@ int dispatch(const void* B, const void* unaries, const void* lut, const void* vi
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define LSQ_ICM_LAUNCH(CPL)                                                                 \
   return can_vec(unaries, lut, h, CPL)                                                      \
-             ? launch<VARIANT, CPL, DISSECT, kPacked, true>(B, unaries, lut, visits, n, m,  \
-                                                            h, nvisit, out_b, sink, s,      \
-                                                            smem)                           \
-             : launch<VARIANT, CPL, DISSECT, kPacked, false>(B, unaries, lut, visits, n, m, \
-                                                             h, nvisit, out_b, sink, s, smem)
+             ? launch<VARIANT, CPL, DISSECT, true>(B, unaries, lut, visits, n, m, h, nvisit, \
+                                                   out_b, sink, s, smem)                    \
+             : launch<VARIANT, CPL, DISSECT, false>(B, unaries, lut, visits, n, m, h,       \
+                                                    nvisit, out_b, sink, s, smem)
   if (h <= 32)  // one candidate a lane: nothing to vectorise
-    return launch<VARIANT, 1, DISSECT, kPacked, false>(B, unaries, lut, visits, n, m, h,
-                                                       nvisit, out_b, sink, s, smem);
+    return launch<VARIANT, 1, DISSECT, false>(B, unaries, lut, visits, n, m, h, nvisit, out_b,
+                                              sink, s, smem);
   if (h <= 64) LSQ_ICM_LAUNCH(2);
   if (h <= 128) LSQ_ICM_LAUNCH(4);
   if (h <= 256) LSQ_ICM_LAUNCH(8);
@@ -441,33 +401,6 @@ int lsq_icm_sweeps_dissect(int variant, const void* B, const void* unaries, cons
       return static_cast<int>(cudaErrorInvalidValue);
   }
 #undef LSQ_ICM_DISSECT
-}
-
-// K5 at one stage of its redesign, to time the stages in one run: step 0 the
-// first port's visit (strided lane map, each 2-byte load feeding its add), 1
-// the same map with a visit's loads issued before its adds, 2 the kernel that
-// runs (lsq_icm_sweeps_v2). Eight candidates a lane only: 128 < h <= 256,
-// h % 8 == 0, 16-byte aligned unaries and table.
-int lsq_icm_sweeps_step(int step, const void* B, const void* unaries, const void* lut,
-                        const void* visits, int n, int m, int h, int nvisit, void* out_b,
-                        void* stream) {
-  if (h <= 128 || h > 256 || !can_vec(unaries, lut, h, 8))
-    return static_cast<int>(cudaErrorInvalidValue);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int smem = lsq_icm_smem_bytes(m, h);
-  switch (step) {
-    case 0:
-      return launch<2, 8, kProduction, kInterleaved, false>(B, unaries, lut, visits, n, m, h,
-                                                            nvisit, out_b, nullptr, s, smem);
-    case 1:
-      return launch<2, 8, kProduction, kHoisted, false>(B, unaries, lut, visits, n, m, h,
-                                                        nvisit, out_b, nullptr, s, smem);
-    case 2:
-      return launch<2, 8, kProduction, kPacked, true>(B, unaries, lut, visits, n, m, h,
-                                                      nvisit, out_b, nullptr, s, smem);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
 }
 
 const char* lsq_error_string(int err) {

@@ -35,7 +35,6 @@ lexicographic (dist, id) top-k.
 
 from __future__ import annotations
 
-import ctypes
 import dataclasses
 
 import numpy as np
@@ -43,7 +42,7 @@ import torch
 
 from local_search_quantization_torch import _build
 from local_search_quantization_torch.ops import adc, launch_counts
-from local_search_quantization_torch.ops.select_kernels import _mono
+from local_search_quantization_torch.ops.select_kernels import _check, lex_topk
 
 __all__ = ["DeviceScan", "IVFPartition", "build_partition", "coarse_probes",
            "exhaustive_scan", "ivf_kcap", "ivf_scan", "ivf_scan_reference", "ivf_slices",
@@ -66,8 +65,6 @@ _IVF_SLICE_ROWS = 16384
 _IVF_ROWS_PER_K = 8
 _IVF_MAX_SLICES = 256
 _IVF_WORK_KEYS = 1 << 25
-_P = ctypes.c_void_p
-_I = ctypes.c_int
 
 
 def topk_lex(d: np.ndarray, ids: np.ndarray, k: int):
@@ -390,27 +387,6 @@ def merge_knn(a: adc.KNNResult, b: adc.KNNResult, k: int) -> adc.KNNResult:
 # The probed scan on the index's device: the kernel, and its plain version.
 
 
-def _topk_lex_rows(d: torch.Tensor, ids: torch.Tensor, k: int):
-    """`topk_lex` over the rows of d [nq, c] f32 and ids [nq, c] int64 (-1
-    never wins): one `torch.topk` over the 64-bit keys (monotone image of
-    dist) << 32 | id, whose signed order is the (dist, id) order. Returns
-    (dists [nq, k], ids [nq, k] int64), (+inf, -1) where the distance is not
-    finite and past the c candidates."""
-    nq, c = d.shape
-    kk = min(k, c)
-    live = torch.isfinite(d) & (ids >= 0)
-    keys = torch.where(live, (_mono(d) - (1 << 31)) * (1 << 32) + ids.clamp(min=0),
-                       torch.iinfo(torch.int64).max)
-    pos = torch.topk(keys, kk, dim=1, largest=False, sorted=True).indices
-    live = torch.gather(live, 1, pos)
-    out_d = torch.where(live, torch.gather(d, 1, pos), float("inf"))
-    out_i = torch.where(live, torch.gather(ids, 1, pos), -1)
-    if kk < k:
-        out_d = torch.nn.functional.pad(out_d, (0, k - kk), value=float("inf"))
-        out_i = torch.nn.functional.pad(out_i, (0, k - kk), value=-1)
-    return out_d, out_i
-
-
 def ivf_scan_reference(luts: torch.Tensor, k: int, probes: torch.Tensor,
                        starts: torch.Tensor, lives: torch.Tensor, codes: torch.Tensor,
                        extra: torch.Tensor | None, order: torch.Tensor) -> adc.KNNResult:
@@ -457,8 +433,7 @@ def ivf_scan_reference(luts: torch.Tensor, k: int, probes: torch.Tensor,
             d = d + torch.gather(lq[:, j, :], 1, rows_c[:, :, j].long())
         if extra is not None:
             d = d + extra[pos]
-        d = torch.where(live, d, float("inf"))
-        dd, ii = _topk_lex_rows(d, torch.where(live, order[pos], -1), k)
+        dd, ii = lex_topk(d, torch.where(live, order[pos], -1), k)
         out_d.append(dd)
         out_i.append(ii)
     return adc.KNNResult(torch.cat(out_d), torch.cat(out_i))
@@ -499,8 +474,8 @@ def ivf_scan(luts: torch.Tensor, k: int, probes: torch.Tensor, starts: torch.Ten
     device the kernel of csrc/ivf_scan.cu, for k <= 2048 (`ivf_kcap`; a
     larger k raises), with no host sync: `ivf_queries` is counted on the
     host, `ivf_rows_scanned` on the device (`launch_counts.device_counter`).
-    On the CPU the plain version. Counts launches in `ivf_scan.launches` and
-    the merge's in `ivf_scan.merge_launches`."""
+    On the CPU the plain version. Counts launches as "ivf_scan" and the
+    merge's as "ivf_merge"."""
     dev = luts.device
     if dev.type == "cpu":
         return ivf_scan_reference(luts, k, probes, starts, lives, codesT.t(), extra, order)
@@ -526,10 +501,7 @@ def ivf_scan(luts: torch.Tensor, k: int, probes: torch.Tensor, starts: torch.Ten
         checks.append((extra, extra.dtype == torch.float32 and tuple(extra.shape) == (n_g,)
                        and extra.data_ptr() % 16 == 0,
                        "extra must be f32 [n_g], 16-byte aligned"))
-    for t, ok, msg in checks:
-        if not ok or t.device != dev or not t.is_contiguous():
-            raise ValueError(f"ivf_scan: {msg}, contiguous, on {dev}; got "
-                             f"{t.dtype} {tuple(t.shape)} on {t.device}")
+    _check("ivf_scan", dev, checks)
     if m * h * 4 > _IVF_LUT_MAX_BYTES:
         raise ValueError(f"ivf_scan: a [{m}, {h}] f32 table exceeds the "
                          f"{_IVF_LUT_MAX_BYTES} bytes a scan block holds")
@@ -543,23 +515,15 @@ def ivf_scan(luts: torch.Tensor, k: int, probes: torch.Tensor, starts: torch.Ten
     work = (torch.empty((nq * slices * k,), dtype=torch.int64, device=dev)
             if slices > 1 else None)
     rows = launch_counts.device_counter("ivf_rows_scanned", dev)
-    lib = _build.load("ivf_scan")
-    lib.lsq_ivf_scan.argtypes = [_P, _I, _I, _I, _P, _I, _P, _P, _P, ctypes.c_longlong, _P, _P,
-                                 _I, _I, _I, _P, _P, _P, _P, _P]
-    lib.lsq_ivf_scan.restype = _I
-    err = lib.lsq_ivf_scan(
+    _build.load("ivf_scan").lsq_ivf_scan(
         luts.data_ptr(), nq, m, h, probes.data_ptr(), p, starts.data_ptr(), lives.data_ptr(),
         codesT.data_ptr(), n_g, None if extra is None else extra.data_ptr(), order.data_ptr(),
         k, cap, slices, None if work is None else work.data_ptr(), rows.data_ptr(),
-        out_d.data_ptr(), out_i.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(lib, err, "ivf_scan kernel launch")
-    ivf_scan.launches += 1
-    ivf_scan.merge_launches += slices > 1
+        out_d.data_ptr(), out_i.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
+        what="ivf_scan kernel launch")
+    launch_counts.COUNTS["ivf_scan"] += 1
+    launch_counts.COUNTS["ivf_merge"] += slices > 1
     return adc.KNNResult(out_d, out_i)
-
-
-ivf_scan.launches = 0
-ivf_scan.merge_launches = 0
 
 
 class DeviceScan:
@@ -602,4 +566,4 @@ def merge_knn_device(a: adc.KNNResult, b: adc.KNNResult, k: int) -> adc.KNNResul
     top-k of two per-query lists, ids int64, (+inf, -1) sentinels kept."""
     d = torch.cat([a.dists, b.dists], dim=1)
     i = torch.cat([a.ids.long(), b.ids.long()], dim=1)
-    return adc.KNNResult(*_topk_lex_rows(d, i, min(k, d.shape[1])))
+    return adc.KNNResult(*lex_topk(d, i, min(k, d.shape[1])))

@@ -27,9 +27,9 @@ import torch
 
 from local_search_quantization_torch.ops import launch_counts
 from local_search_quantization_torch.ops.select_kernels import (
-    _sort_lex,
     fused_scan_topk,
     kernel_holds,
+    lex_topk,
     lut_scan_block,
     rerun_uncertified,
     scan_topk_reference,
@@ -165,11 +165,9 @@ def _scan_topk_tournament(luts: torch.Tensor, Bt: torch.Tensor,
             cand = cand + extra[cand_idx]
     k_req = k + 1 if certify else k
     d, pos = torch.topk(cand, k_req, dim=1, largest=False)
-    ids = torch.gather(cand_idx, 1, pos)
-    ids = torch.where(torch.isinf(d), -1, ids).to(torch.int32)
     # Retained equal distances ascend by id; which tie-mates survive the
     # k-th value is what the certificate checks.
-    d, ids = _sort_lex(d, ids)
+    d, ids = lex_topk(d, torch.gather(cand_idx, 1, pos).to(torch.int32), k_req)
     if not certify:
         return KNNResult(d, ids)
     if store_dists:
@@ -252,8 +250,8 @@ def _run_scan(luts_fn, Q, B, *, k: int, extra=None, query_chunk: int = 256,
     here, so every route scans the same rounded tables; the result is the
     exact top-k of those distances. mode "matmul"/"gather" are accepted and
     compute the same sums. Bases above `base_segment` rows are scanned a
-    segment at a time and merged (stable, so ids stay in order); a (+inf, -1)
-    sentinel is never offset into a real id. device_state
+    segment at a time and merged by `lex_topk`; a (+inf, -1) sentinel is
+    never offset into a real id. device_state
     (`prepare_device_codes`) skips the per-call upload; it must match the
     base and `base_block`, and does not apply to the segmented path.
     """
@@ -295,9 +293,7 @@ def _run_scan(luts_fn, Q, B, *, k: int, extra=None, query_chunk: int = 256,
                             base_segment=base_segment, precision=precision)
             dists.append(seg.dists)
             ids.append(torch.where(seg.ids >= 0, seg.ids + s0, -1).to(torch.int32))
-        d_all, i_all = torch.cat(dists, dim=1), torch.cat(ids, dim=1)
-        d_all, order = torch.sort(d_all, dim=1, stable=True)
-        return KNNResult(d_all[:, :k], torch.gather(i_all, 1, order[:, :k]))
+        return KNNResult(*lex_topk(torch.cat(dists, dim=1), torch.cat(ids, dim=1), k))
     if topk_method == "native" or (topk_method == "auto" and dev.type == "cpu"):
         from local_search_quantization_torch.utils import native as _nat
 

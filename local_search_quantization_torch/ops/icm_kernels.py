@@ -16,29 +16,22 @@
   Port of the kernel in `benchmarks/bench_kernel_variants.py`; CUDA in
   `csrc/icm_sweeps.cu` (`lsq_icm_sweeps_dissect`), plain version
   `icm_sweeps_dissect_reference`.
-- `icm_sweeps_step`: K5 at one stage of its redesign for this card (the
-  first port's visit, the same with its loads hoisted, the kernel that
-  runs), so that one run times them side by side; a measurement tool on no
-  path, with K5's plain version.
 - `ils_visits_needed`: the row-visits of K1's encode whose inputs changed,
   the ones the kernel does; it skips the rest, whose argmin is the code the
   row already holds.
 
 Each wrapper takes the plain version only for tensors on the CPU; a CUDA
-tensor goes to the kernel, or the call raises.
+tensor goes to the kernel, or the call raises. Each counts its launches
+under its key in `launch_counts`.
 """
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from local_search_quantization_torch import _build
+from local_search_quantization_torch.ops import launch_counts
 from local_search_quantization_torch.ops.icm import _condition
-
-_P = ctypes.c_void_p
-_I = ctypes.c_int
 
 
 def _ptr(t: torch.Tensor | None) -> int | None:
@@ -249,7 +242,6 @@ def _ils_launch(what, unaries, binaries, xsq, B0, orders, pert_keys, pert_codes,
         raise ValueError(f"{what}: needs 1 <= m <= 32 and "
                          f"0 <= npert <= m, got m={m}, npert={npert}")
     lib = _build.load("ils_encode")
-    lib.lsq_ils_smem_bytes.argtypes = [_I, _I]
     if lib.lsq_ils_smem_bytes(m, h) > _SMEM_LIMIT or h > lib.lsq_ils_max_h():
         raise ValueError(f"{what}: m={m}, h={h} needs more "
                          "shared memory or registers than the kernel has")
@@ -265,15 +257,12 @@ def _ils_launch(what, unaries, binaries, xsq, B0, orders, pert_keys, pert_codes,
                              device=dev)
     if n:
         table, lo = split_hi_lo(binaries)
-        fn = lib.lsq_ils_encode
-        fn.argtypes = [_P] * 9 + [_I] * 7 + [_P] * 6
-        fn.restype = _I
-        err = fn(_ptr(unaries), _ptr(table), _ptr(lo), _ptr(xsq), _ptr(B0), _ptr(orders),
-                 _ptr(pert_keys), _ptr(pert_codes), _ptr(ms_rounds),
-                 n, m, h, rounds, icmiter, npert, n_ms,
-                 _ptr(out_b), _ptr(out_cost), _ptr(ms_b), _ptr(ms_cost), _ptr(stats),
-                 torch.cuda.current_stream(dev).cuda_stream)
-        _build.check(lib, err, f"{what} kernel launch")
+        lib.lsq_ils_encode(_ptr(unaries), _ptr(table), _ptr(lo), _ptr(xsq), _ptr(B0),
+                           _ptr(orders), _ptr(pert_keys), _ptr(pert_codes), _ptr(ms_rounds),
+                           n, m, h, rounds, icmiter, npert, n_ms,
+                           _ptr(out_b), _ptr(out_cost), _ptr(ms_b), _ptr(ms_cost), _ptr(stats),
+                           torch.cuda.current_stream(dev).cuda_stream,
+                           what=f"{what} kernel launch")
     return (out_b, out_cost, ms_b if n_ms else None, ms_cost if n_ms else None,
             stats.float() if with_stats else None), n > 0
 
@@ -285,7 +274,7 @@ def ils_encode_streamed(unaries, binaries, xsq, B0, orders, pert_keys,
 
     Same arguments and results as `ils_encode_streamed_reference`, which
     CPU tensors get; the f32 table is split into bf16 hi/lo here, once.
-    Counts its launches in `ils_encode_streamed.launches`.
+    Counts its launches as "ils_encode".
     """
     dev = unaries.device
     if dev.type == "cpu":
@@ -296,11 +285,9 @@ def ils_encode_streamed(unaries, binaries, xsq, B0, orders, pert_keys,
         raise ValueError(f"ils_encode_streamed: unsupported device {dev}")
     out, launched = _ils_launch("ils_encode_streamed", unaries, binaries, xsq, B0, orders,
                                 pert_keys, pert_codes, icmiter, milestones, with_stats)
-    ils_encode_streamed.launches += launched
+    launch_counts.COUNTS["ils_encode"] += launched
     return out
 
-
-ils_encode_streamed.launches = 0
 
 def binaries_to_j_stacked(binaries: torch.Tensor) -> torch.Tensor:
     """[m, m, h, h] -> [m, m*h, h] with the (j, j) blocks zeroed:
@@ -337,7 +324,6 @@ def _sweeps_library(name: str, B, unaries, table, table_shape, order):
     if not 1 <= m <= 32:
         raise ValueError(f"{name}: needs 1 <= m <= 32, got m={m}")
     lib = _build.load("icm_sweeps")
-    lib.lsq_icm_smem_bytes.argtypes = [_I, _I]
     if lib.lsq_icm_smem_bytes(m, h) > 227 * 1024 or h > lib.lsq_icm_max_h():
         raise ValueError(f"{name}: m={m}, h={h} needs more shared memory or "
                          "registers than the kernel has")
@@ -399,8 +385,8 @@ def fused_icm_sweeps(B, unaries, binaries_bf16, order, *, icmiter: int,
 
     Same arguments and result as `fused_icm_sweeps_reference`, which CPU
     tensors get. On the card B and order are int32, unaries f32 and
-    binaries_bf16 bf16, all contiguous. Counts its launches per variant in
-    `fused_icm_sweeps.launches`.
+    binaries_bf16 bf16, all contiguous. Counts its launches per variant, as
+    "icm_sweeps_v2" or "icm_sweeps_v1".
     """
     if variant not in _VARIANTS:
         raise ValueError(f"variant must be one of {_VARIANTS}, got {variant!r}")
@@ -420,67 +406,14 @@ def fused_icm_sweeps(B, unaries, binaries_bf16, order, *, icmiter: int,
     lut = binaries_to_j_stacked(binaries_bf16).contiguous() if variant == "v2" \
         else binaries_bf16
     fn = lib.lsq_icm_sweeps_v2 if variant == "v2" else lib.lsq_icm_sweeps_v1
-    fn.argtypes = [_P] * 4 + [_I] * 4 + [_P] * 2
-    fn.restype = _I
-    err = fn(_ptr(B), _ptr(unaries), _ptr(lut), _ptr(visits), n, m, h,
-             icmiter * m, _ptr(out), torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(lib, err, f"icm_sweeps_{variant} kernel launch")
-    fused_icm_sweeps.launches[variant] += 1
+    fn(_ptr(B), _ptr(unaries), _ptr(lut), _ptr(visits), n, m, h, icmiter * m, _ptr(out),
+       torch.cuda.current_stream(dev).cuda_stream, what=f"icm_sweeps_{variant} kernel launch")
+    launch_counts.COUNTS[f"icm_sweeps_{variant}"] += 1
     return out
-
-
-fused_icm_sweeps.launches = {v: 0 for v in _VARIANTS}
-
-
-# K5's redesign for this card, stage by stage (csrc/icm_sweeps.cu, `Step`).
-SWEEP_STEPS = ("interleaved", "hoisted", "packed")
-
-
-def icm_sweeps_step(B, unaries, binaries_bf16, order, *, icmiter: int, step: str):
-    """K5 as it stood at one stage of its redesign: "interleaved" is the
-    first port's visit (lane l holds candidates l, l+32, ...; each 2-byte
-    table load feeds its add), "hoisted" the same lane map with a visit's
-    loads issued before its adds, "packed" the kernel `fused_icm_sweeps`
-    runs. All three give K5's codes; a run times them side by side.
-
-    Arguments and result as `fused_icm_sweeps(variant="v2")`, whose plain
-    version CPU tensors get; the table may be given j-stacked. On the card
-    it takes eight candidates a lane only: 128 < h <= 256 and h % 8 == 0.
-    Counts its launches per step in `icm_sweeps_step.launches`.
-    """
-    if step not in SWEEP_STEPS:
-        raise ValueError(f"step must be one of {SWEEP_STEPS}, got {step!r}")
-    dev = unaries.device
-    lut = _dissect_table(binaries_bf16)
-    if dev.type == "cpu":
-        return _k5_sweeps(B, unaries, lut, order, icmiter)
-    if dev.type != "cuda":
-        raise ValueError(f"icm_sweeps_step: unsupported device {dev}")
-    n, m = B.shape
-    h = unaries.shape[2]
-    lib = _sweeps_library("icm_sweeps_step", B, unaries, lut, (m, m * h, h), order)
-    if not (128 < h <= 256 and h % 8 == 0):
-        raise ValueError(f"icm_sweeps_step: needs 128 < h <= 256 and h % 8 == 0, "
-                         f"got h={h}")
-    out = torch.empty((n, m), dtype=torch.int32, device=dev)
-    if n == 0:
-        return out
-    visits = order.repeat(icmiter).contiguous()
-    fn = lib.lsq_icm_sweeps_step
-    fn.argtypes = [_I] + [_P] * 4 + [_I] * 4 + [_P] * 2
-    fn.restype = _I
-    err = fn(SWEEP_STEPS.index(step), _ptr(B), _ptr(unaries), _ptr(lut), _ptr(visits),
-             n, m, h, icmiter * m, _ptr(out), torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(lib, err, f"icm_sweeps_step {step} kernel launch")
-    icm_sweeps_step.launches[step] += 1
-    return out
-
-
-icm_sweeps_step.launches = {s: 0 for s in SWEEP_STEPS}
 
 
 # K7's variants, in the order of the C entry point's `variant` argument.
-DISSECT_VARIANTS = ("full", "predwrite", "nowrite", "noargmin", "mmonly")
+DISSECT_VARIANTS = launch_counts.DISSECT_VARIANTS
 # The code "noargmin" writes in place of the argmin (bench_kernel_variants.py:72).
 _NOARGMIN_CODE = 3
 
@@ -567,7 +500,7 @@ def icm_sweeps_dissect(B, unaries, binaries_bf16, order, *, icmiter: int, varian
     tensors get. On the card B and order are int32, unaries f32 and the
     table bf16, all contiguous; a table given j-stacked ([m, m*h, h]) is
     used as it is, so a caller that times the kernel stacks it once. Counts
-    its launches per variant in `icm_sweeps_dissect.launches`.
+    its launches per variant, as "dissect.<variant>".
     """
     if variant not in DISSECT_VARIANTS:
         raise ValueError(f"variant must be one of {DISSECT_VARIANTS}, got {variant!r}")
@@ -588,15 +521,9 @@ def icm_sweeps_dissect(B, unaries, binaries_bf16, order, *, icmiter: int, varian
     if n == 0:
         return out, sink
     visits = order.repeat(icmiter).contiguous()
-    fn = lib.lsq_icm_sweeps_dissect
-    fn.argtypes = [_I] + [_P] * 4 + [_I] * 4 + [_P] * 3
-    fn.restype = _I
-    err = fn(DISSECT_VARIANTS.index(variant), _ptr(B), _ptr(unaries), _ptr(lut),
-             _ptr(visits), n, m, h, icmiter * m, _ptr(out), _ptr(sink),
-             torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(lib, err, f"icm_sweeps_dissect {variant} kernel launch")
-    icm_sweeps_dissect.launches[variant] += 1
+    lib.lsq_icm_sweeps_dissect(
+        DISSECT_VARIANTS.index(variant), _ptr(B), _ptr(unaries), _ptr(lut), _ptr(visits),
+        n, m, h, icmiter * m, _ptr(out), _ptr(sink), torch.cuda.current_stream(dev).cuda_stream,
+        what=f"icm_sweeps_dissect {variant} kernel launch")
+    launch_counts.COUNTS[f"dissect.{variant}"] += 1
     return out, sink
-
-
-icm_sweeps_dissect.launches = {v: 0 for v in DISSECT_VARIANTS}

@@ -11,15 +11,12 @@ it on the card.
 
 from __future__ import annotations
 
-import ctypes
-
 import numpy as np
 import torch
 
 from local_search_quantization_torch import _build
+from local_search_quantization_torch.ops import launch_counts
 
-_P = ctypes.c_void_p
-_I = ctypes.c_int
 # The kernel's launch shape: 8 warps a block, 4 rows a warp step.
 WARPS_PER_BLOCK, ROWS_PER_STEP = 8, 4
 
@@ -53,7 +50,7 @@ def l2_gather(table: torch.Tensor, *, warps: int, rows_per_warp: int, wide: bool
     row_elems] bf16 or f32, rows of a multiple of 16 bytes) and sum them:
     [warps] f32. `wide` loads 16 bytes a lane, else one element a lane as
     K1, K5 and K6 do. CPU tables take the plain version; counts its launches
-    in `l2_gather.launches`."""
+    as "l2_gather" in `launch_counts`."""
     dev = table.device
     if dev.type == "cpu":
         return l2_gather_reference(table, warps=warps, rows_per_warp=rows_per_warp,
@@ -71,19 +68,13 @@ def l2_gather(table: torch.Tensor, *, warps: int, rows_per_warp: int, wide: bool
     if warps % WARPS_PER_BLOCK or rows_per_warp % ROWS_PER_STEP or warps <= 0:
         raise ValueError(f"l2_gather: warps must be a positive multiple of "
                          f"{WARPS_PER_BLOCK} and rows_per_warp of {ROWS_PER_STEP}")
-    lib = _build.load("l2_probe")
     out = torch.empty((warps,), dtype=torch.float32, device=dev)
-    fn = lib.lsq_l2_gather
-    fn.argtypes = [_P] + [_I] * 6 + [ctypes.c_uint, _P, _P]
-    fn.restype = _I
-    err = fn(table.data_ptr(), esize, int(wide), nrows, row_elems, warps, rows_per_warp,
-             seed & 0xFFFFFFFF, out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(lib, err, "l2_gather kernel launch")
-    l2_gather.launches += 1
+    _build.load("l2_probe").lsq_l2_gather(
+        table.data_ptr(), esize, int(wide), nrows, row_elems, warps, rows_per_warp,
+        seed & 0xFFFFFFFF, out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
+        what="l2_gather kernel launch")
+    launch_counts.COUNTS["l2_gather"] += 1
     return out
-
-
-l2_gather.launches = 0
 
 
 def l2_gather_rate(row_bytes: int, table_bytes: int, dtype: torch.dtype, *, wide: bool,

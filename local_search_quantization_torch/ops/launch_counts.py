@@ -1,14 +1,22 @@
 """The port's counters, read and reset together: kernel launches, certificate
 reruns, host syncs and entry-point calls.
 
-Each kernel wrapper adds one to its counter where it launches its kernel (on
-a CUDA tensor) and nowhere else, so on the CPU every launch count stays 0.
-The other counters live here (`COUNTS`; host syncs through `sync` and
-`copy`):
+Every counter is a key of `COUNTS`. Each kernel wrapper adds one to its key
+where it launches its kernel (on a CUDA tensor) and nowhere else, so on the
+CPU every launch count stays 0:
 
+- `ils_encode` (K1), `icm_sweeps_v2`/`icm_sweeps_v1` (K5/K6),
+  `dissect.<variant>` (K7, one key a variant), `scan_select` (K3, also K2's
+  pre-scan), `scan_key` (K4), `k2_filter`, `k2_select` and `scan_topk_dense`
+  (K2's stages and its dense path), `ivf_scan` and `ivf_merge` (the probed
+  scan, and its merge where a query has several slices), `l2_gather` (the L2
+  probe, on no path);
+- `scan_topk_failed`: the queries K2 reran on its dense path after a failed
+  certificate;
 - `host_syncs`: the sites on the `Index.add` and `Index.search` paths where
   the host waits on the card (a `torch.nonzero`, a blocking copy between
-  host and card), counted only for CUDA tensors, like the launches;
+  host and card), counted only for CUDA tensors, like the launches (`sync`,
+  `copy`);
 - `search_calls`, `add_calls`: calls of `Index.search` (the outer call where
   refine recurses) and `Index.add`;
 - `rerun_warm`, `rerun_widen`, `rerun_tournament`: the queries rerun by the
@@ -21,18 +29,26 @@ The other counters live here (`COUNTS`; host syncs through `sync` and
   counter in (one host read, at the read).
 
 The server reports these at its end; a GPU run reads them around the work it
-drives. This module imports the kernel modules only inside `zero` and `read`,
-so they can import it.
+drives. This module imports nothing of the package, so that every module can
+import it.
 """
 
 from __future__ import annotations
 
 import torch
 
-_SELECT = ("scan_select", "scan_key", "k2_filter", "k2_select")
-
-COUNTS = {"host_syncs": 0, "search_calls": 0, "add_calls": 0, "rerun_warm": 0,
-          "rerun_widen": 0, "rerun_tournament": 0, "ivf_queries": 0, "ivf_rows_scanned": 0}
+# K7's variants, in the order of its C entry point's `variant` argument.
+DISSECT_VARIANTS = ("full", "predwrite", "nowrite", "noargmin", "mmonly")
+# `read`'s keys that count the launches of one kernel each; K7's is the sum of
+# its variants' keys "dissect.<variant>".
+LAUNCHES = ("ils_encode", "icm_sweeps_v2", "icm_sweeps_v1", "icm_sweeps_dissect",
+            "scan_select", "scan_key", "k2_filter", "k2_select", "scan_topk_dense",
+            "ivf_scan", "ivf_merge", "l2_gather")
+COUNTS = dict.fromkeys(
+    [key for key in LAUNCHES if key != "icm_sweeps_dissect"]
+    + [f"dissect.{v}" for v in DISSECT_VARIANTS]
+    + ["scan_topk_failed", "host_syncs", "search_calls", "add_calls", "rerun_warm",
+       "rerun_widen", "rerun_tournament", "ivf_queries", "ivf_rows_scanned"], 0)
 # Counters a kernel adds to on the card: {(name of a COUNTS key, device): int64 [1]}.
 _ON_DEVICE: dict[tuple[str, torch.device], torch.Tensor] = {}
 
@@ -70,17 +86,6 @@ def device_counter(name: str, device) -> torch.Tensor:
 
 def zero() -> None:
     """Every counter to 0."""
-    from local_search_quantization_torch import ivf
-    from local_search_quantization_torch.ops import icm_kernels, select_kernels
-
-    icm_kernels.ils_encode_streamed.launches = 0
-    icm_kernels.fused_icm_sweeps.launches.update(v2=0, v1=0)
-    for v in icm_kernels.DISSECT_VARIANTS:
-        icm_kernels.icm_sweeps_dissect.launches[v] = 0
-    for name in _SELECT:
-        getattr(select_kernels, name).launches = 0
-    select_kernels.scan_topk.dense_launches = select_kernels.scan_topk.failed = 0
-    ivf.ivf_scan.launches = ivf.ivf_scan.merge_launches = 0
     for key in COUNTS:
         COUNTS[key] = 0
     for t in _ON_DEVICE.values():
@@ -88,31 +93,14 @@ def zero() -> None:
 
 
 def read() -> dict:
-    """{counter: count}: one key a kernel (K7 also per variant under
-    "dissect"), with K2's stages and dense path beside their sum, the
-    probed scan's and its merge's, then the keys of `COUNTS` with the
-    device counters added."""
-    from local_search_quantization_torch import ivf
-    from local_search_quantization_torch.ops import icm_kernels, select_kernels
-
-    out = {"ils_encode": icm_kernels.ils_encode_streamed.launches,
-           "icm_sweeps_v2": icm_kernels.fused_icm_sweeps.launches["v2"],
-           "icm_sweeps_v1": icm_kernels.fused_icm_sweeps.launches["v1"],
-           "dissect": dict(icm_kernels.icm_sweeps_dissect.launches)}
-    # K7 counts its launches per variant; its kernels line counts them all.
+    """{counter: count}: every key of `COUNTS` with the device counters
+    added, but K7's per-variant counts gathered under "dissect" and summed as
+    "icm_sweeps_dissect", and K2's launches as "scan_topk" (k2_filter, once
+    a chunk of queries on the staged path, plus the dense launches)."""
+    out = {key: n for key, n in COUNTS.items() if not key.startswith("dissect.")}
+    out["dissect"] = {v: COUNTS[f"dissect.{v}"] for v in DISSECT_VARIANTS}
     out["icm_sweeps_dissect"] = sum(out["dissect"].values())
-    for name in _SELECT:
-        out[name] = getattr(select_kernels, name).launches
-    # K2's dense path, and the queries rerun there after a failed certificate.
-    out["scan_topk_dense"] = select_kernels.scan_topk.dense_launches
-    out["scan_topk_failed"] = select_kernels.scan_topk.failed
-    # K2 launches its filter (and then its select) once a chunk of queries on
-    # the staged path, its dense kernels once a launch on the dense path.
     out["scan_topk"] = out["k2_filter"] + out["scan_topk_dense"]
-    # The probed scan launches its merge too where a query has several slices.
-    out["ivf_scan"] = ivf.ivf_scan.launches
-    out["ivf_merge"] = ivf.ivf_scan.merge_launches
-    out.update(COUNTS)
     for (name, _), t in _ON_DEVICE.items():
         out[name] += int(t.item())
     return out

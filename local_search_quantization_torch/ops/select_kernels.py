@@ -32,13 +32,13 @@ rows are never returned and empty slots are (+inf, -1).
 
 A wrapper runs its kernel's plain version (`*_reference`) only for tensors
 on the CPU; a CUDA tensor goes to the kernel, or the call raises. Each
-wrapper that launches a kernel counts its launches in `<wrapper>.launches`
-(K2's dense path in `scan_topk.dense_launches`).
+wrapper that launches a kernel counts its launches under its name in
+`launch_counts` (K2's dense path as "scan_topk_dense"). Every merge of
+(dist, id) candidates, here and in the modules above, is `lex_topk`.
 """
 
 from __future__ import annotations
 
-import ctypes
 import functools
 import math
 import os
@@ -49,8 +49,6 @@ from local_search_quantization_torch import _build
 from local_search_quantization_torch.ops import launch_counts
 from local_search_quantization_torch.utils.profiling import span
 
-_P = ctypes.c_void_p
-_I = ctypes.c_int
 # K2's dense path: distance scratch per launch, at most this many f32
 # elements (1 GiB), and at most this many queries a launch; the rows a
 # select block loads at once (a segment is a whole number of them).
@@ -107,12 +105,31 @@ def lut_scan_block(luts: torch.Tensor, Bt_block: torch.Tensor,
     return acc
 
 
-def _sort_lex(d: torch.Tensor, i: torch.Tensor):
-    """Sort [nq, c] candidates by (dist, id): by id, then stably by dist."""
-    i, pos = torch.sort(i, dim=1)
-    d = torch.gather(d, 1, pos)
-    d, pos = torch.sort(d, dim=1, stable=True)
-    return d, torch.gather(i, 1, pos)
+def lex_topk(d: torch.Tensor, ids: torch.Tensor, k: int):
+    """The k smallest of each row's candidates in (dist, id) order: d [nq, c]
+    f32, ids [nq, c] int32 or int64, distinct within a row but for -1.
+
+    One `torch.topk` of the signed 64-bit keys (mono(d) - 2^31) << 32 | id,
+    whose order is the (dist, id) order (-0.0 ranks with +0.0, as in a
+    float comparison). `_k2_keys`' bit patterns are not: their signed order
+    puts every positive distance before every negative one. A slot whose
+    distance is not finite, or whose id is below 0, comes back as (+inf,
+    -1), as do the columns past c. Returns (dists [nq, k], ids [nq, k] in
+    ids' dtype).
+
+    On the card each elementwise op costs about 11 us of host dispatch at
+    the merges' shapes, more than the top-k itself, so the key is built in
+    few: the high word the f32 bits made signed-monotone (-0.0 to 0), the
+    low word the id, stacked as int32 pairs and read as int64 (little-
+    endian)."""
+    inf = float("inf")
+    d = torch.where(ids >= 0, torch.nan_to_num(d, nan=inf, posinf=inf, neginf=inf), inf)
+    ids = torch.where(d < inf, ids, -1)
+    b = d.view(torch.int32)
+    hi = torch.where(b < 0, _MININT - b, b)
+    keys = torch.stack([ids.to(torch.int32), hi], dim=2).view(torch.int64)[:, :, 0]
+    pos = torch.topk(keys, min(k, keys.shape[1]), dim=1, largest=False).indices
+    return _pad_cols(torch.gather(d, 1, pos), torch.gather(ids, 1, pos), k)
 
 
 def _check(name: str, dev, checks) -> None:
@@ -180,22 +197,27 @@ def scan_topk_reference(luts: torch.Tensor, Bt: torch.Tensor,
     return scan_select_reference(luts, Bt, extra, k, block=block)
 
 
-def _k2_inputs(name: str, luts: torch.Tensor, Bt: torch.Tensor,
-               extra: torch.Tensor | None):
-    """Check K2's inputs on the card; returns (extra, code bytes)."""
+def _scan_inputs(name: str, luts: torch.Tensor, Bt: torch.Tensor,
+               extra: torch.Tensor | None, t0: torch.Tensor | None = None):
+    """Check a scan's inputs on the card (K2, K3, K4: luts, codes, extra and
+    t0 where given); returns (extra, zeros where it is None, code bytes)."""
     dev = luts.device
     nq, m, h = luts.shape
     n = Bt.shape[1]
     if extra is None:
         extra = torch.zeros((n,), dtype=torch.float32, device=dev)
     code_bytes = _code_bytes(Bt)
-    _check(name, dev, [
+    checks = [
         (luts, luts.dtype == torch.float32, "luts must be f32 [nq, m, h]"),
         (Bt, code_bytes is not None and Bt.shape[0] == m,
          "Bt must be uint8 or int32 [m, n]"),
         (extra, extra.dtype == torch.float32 and tuple(extra.shape) == (n,),
          "extra must be f32 [n]"),
-    ])
+    ]
+    if t0 is not None:
+        checks.append((t0, t0.dtype == torch.float32 and tuple(t0.shape) == (nq, 1),
+                       "t0 must be f32 [nq, 1]"))
+    _check(name, dev, checks)
     if n >= 1 << 31:
         raise ValueError(f"{name}: n must be < 2^31")
     return extra, code_bytes
@@ -215,15 +237,15 @@ def scan_topk(luts: torch.Tensor, Bt: torch.Tensor, extra: torch.Tensor | None,
     `scan_topk_dense`. The dense path takes every query where the stages do
     not hold the shape (n < 65,536, an append capacity above 16,384, or
     LUTs too large for `k2_group`). Each stage's wrapper counts its own
-    launches (`k2_filter.launches`, `k2_select.launches`,
-    `scan_topk.dense_launches`; the pre-scan in `scan_select.launches`);
-    `scan_topk.failed` counts the queries rerun dense after a failed
+    launches in `launch_counts` ("k2_filter", "k2_select",
+    "scan_topk_dense"; the pre-scan under "scan_select");
+    "scan_topk_failed" counts the queries rerun dense after a failed
     certificate.
     """
     dev = _cuda_device("scan_topk", luts)
     if dev is None:
         return scan_topk_reference(luts, Bt, extra, k)
-    extra, code_bytes = _k2_inputs("scan_topk", luts, Bt, extra)
+    extra, code_bytes = _scan_inputs("scan_topk", luts, Bt, extra)
     nq, m, h = luts.shape
     n = Bt.shape[1]
     k = min(k, n)
@@ -241,12 +263,8 @@ def scan_topk(luts: torch.Tensor, Bt: torch.Tensor, extra: torch.Tensor | None,
     d, i, failed = k2_staged(luts, Bt, extra, k, prescan=_k2_prescan,
                              filt=k2_filter, select=k2_select,
                              dense=scan_topk_dense, chunk=chunk)
-    scan_topk.failed += failed
+    launch_counts.COUNTS["scan_topk_failed"] += failed
     return d, i
-
-
-scan_topk.dense_launches = 0
-scan_topk.failed = 0
 
 
 def k2_staged(luts: torch.Tensor, Bt: torch.Tensor, extra: torch.Tensor | None,
@@ -289,11 +307,11 @@ def scan_topk_dense(luts: torch.Tensor, Bt: torch.Tensor, extra: torch.Tensor | 
     a radix select on the (dist, id) key over `dense_segments`' row
     segments, at most 256 queries a launch (fewer where the scratch would
     pass 1 GiB). Same contract as `scan_topk`; the plain version is
-    `scan_topk_reference`. Counts launches in `scan_topk.dense_launches`."""
+    `scan_topk_reference`. Counts launches as "scan_topk_dense"."""
     dev = _cuda_device("scan_topk_dense", luts)
     if dev is None:
         return scan_topk_reference(luts, Bt, extra, k)
-    extra, code_bytes = _k2_inputs("scan_topk_dense", luts, Bt, extra)
+    extra, code_bytes = _scan_inputs("scan_topk_dense", luts, Bt, extra)
     nq, m, h = luts.shape
     n = Bt.shape[1]
     k = min(k, n)
@@ -312,17 +330,15 @@ def scan_topk_dense(luts: torch.Tensor, Bt: torch.Tensor, extra: torch.Tensor | 
     dist = torch.empty((qb, n), dtype=torch.float32, device=dev)
     work = torch.empty((max(dense_work_bytes(c, *g) for c, g in grids.items()) // 4,),
                        dtype=torch.int32, device=dev)
-    lib.lsq_scan_topk.argtypes = [_P, _P, _I, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P]
-    lib.lsq_scan_topk.restype = _I
     stream = torch.cuda.current_stream(dev).cuda_stream
     for q0, q1 in chunks:
-        err = lib.lsq_scan_topk(
+        lib.lsq_scan_topk(
             luts[q0:q1].data_ptr(), Bt.data_ptr(), code_bytes, extra.data_ptr(), q1 - q0,
             m, h, n, k, grids[q1 - q0][1], dist.data_ptr(), work.data_ptr(),
-            out_d[q0:q1].data_ptr(), out_i[q0:q1].data_ptr(), stream)
-        _build.check(lib, err, "scan_topk dense kernel launch")
-        scan_topk.dense_launches += 1
-    return _sort_lex(out_d, out_i)
+            out_d[q0:q1].data_ptr(), out_i[q0:q1].data_ptr(), stream,
+            what="scan_topk dense kernel launch")
+        launch_counts.COUNTS["scan_topk_dense"] += 1
+    return lex_topk(out_d, out_i, k)
 
 
 def dense_segments(n: int, nq: int, sms: int) -> tuple[int, int]:
@@ -404,15 +420,13 @@ def k2_filter(luts: torch.Tensor, Bt: torch.Tensor, extra: torch.Tensor | None,
     """K2's filter: append every row with dist < t0 ([nq, 1] f32) as a key,
     see `k2_filter_reference`. The kernel appends in no fixed order and
     leaves unfilled slots unwritten: compare the first min(count, cap)
-    keys, sorted. Counts launches in `k2_filter.launches`."""
+    keys, sorted. Counts launches as "k2_filter"."""
     dev = _cuda_device("k2_filter", luts)
     if dev is None:
         return k2_filter_reference(luts, Bt, extra, t0, cap)
-    extra, code_bytes = _k2_inputs("k2_filter", luts, Bt, extra)
+    extra, code_bytes = _scan_inputs("k2_filter", luts, Bt, extra, t0)
     nq, m, h = luts.shape
     n = Bt.shape[1]
-    _check("k2_filter", dev, [(t0, t0.dtype == torch.float32
-                                and tuple(t0.shape) == (nq, 1), "t0 must be f32 [nq, 1]")])
     g = k2_group(m, h, code_bytes)
     if g == 0 or cap < 1:
         raise ValueError(f"k2_filter: needs cap >= 1 and LUTs (m={m}, h={h}) "
@@ -429,20 +443,12 @@ def k2_filter(luts: torch.Tensor, Bt: torch.Tensor, extra: torch.Tensor | None,
     rows_per_block = -(-tiles // segments) * _K2_TILE
     vec = int(n * code_bytes % 16 == 0 and Bt.data_ptr() % 16 == 0
               and extra.data_ptr() % 16 == 0)
-    lib = _build.load("scan_topk")
-    lib.lsq_k2_filter.argtypes = [_P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                                  _P, _P, _P]
-    lib.lsq_k2_filter.restype = _I
-    err = lib.lsq_k2_filter(
+    _build.load("scan_topk").lsq_k2_filter(
         luts.data_ptr(), Bt.data_ptr(), code_bytes, extra.data_ptr(), t0.data_ptr(),
         nq, m, h, n, rows_per_block, cap, vec, cand.data_ptr(), count.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(lib, err, "k2_filter kernel launch")
-    k2_filter.launches += 1
+        torch.cuda.current_stream(dev).cuda_stream, what="k2_filter kernel launch")
+    launch_counts.COUNTS["k2_filter"] += 1
     return cand, count
-
-
-k2_filter.launches = 0
 
 
 def k2_select_reference(cand: torch.Tensor, count: torch.Tensor, k: int, cap: int):
@@ -467,8 +473,7 @@ def k2_select_reference(cand: torch.Tensor, count: torch.Tensor, k: int, cap: in
 
 def k2_select(cand: torch.Tensor, count: torch.Tensor, k: int, cap: int):
     """K2's select: one block a query sorts its keys, see
-    `k2_select_reference`; cap <= 16384. Counts launches in
-    `k2_select.launches`."""
+    `k2_select_reference`; cap <= 16384. Counts launches as "k2_select"."""
     dev = _cuda_device("k2_select", cand)
     if dev is None:
         return k2_select_reference(cand, count, k, cap)
@@ -486,18 +491,12 @@ def k2_select(cand: torch.Tensor, count: torch.Tensor, k: int, cap: int):
     ok = torch.empty((nq,), dtype=torch.bool, device=dev)
     if nq == 0:
         return out_d, out_i, ok
-    lib = _build.load("scan_topk")
-    lib.lsq_k2_select.argtypes = [_P, _P, _I, _I, _I, _P, _P, _P, _P]
-    lib.lsq_k2_select.restype = _I
-    err = lib.lsq_k2_select(cand.data_ptr(), count.data_ptr(), nq, cap, k,
-                            out_d.data_ptr(), out_i.data_ptr(), ok.data_ptr(),
-                            torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(lib, err, "k2_select kernel launch")
-    k2_select.launches += 1
+    _build.load("scan_topk").lsq_k2_select(
+        cand.data_ptr(), count.data_ptr(), nq, cap, k, out_d.data_ptr(), out_i.data_ptr(),
+        ok.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
+        what="k2_select kernel launch")
+    launch_counts.COUNTS["k2_select"] += 1
     return out_d, out_i, ok
-
-
-k2_select.launches = 0
 
 
 def scan_topk_fits(m: int, h: int) -> bool:
@@ -621,8 +620,7 @@ def merge_segments(seg_d: torch.Tensor, seg_i: torch.Tensor, k: int):
     is the top-k of all rows, for any k <= keep. Returns [nq, k], (+inf, -1)
     past the survivors."""
     nq = seg_d.shape[0]
-    d, i = _sort_lex(seg_d.reshape(nq, -1), seg_i.reshape(nq, -1))
-    return _pad_cols(d, i, k)
+    return lex_topk(seg_d.reshape(nq, -1), seg_i.reshape(nq, -1), k)
 
 
 def scan_select(luts: torch.Tensor, Bt: torch.Tensor, extra: torch.Tensor | None,
@@ -637,30 +635,15 @@ def scan_select(luts: torch.Tensor, Bt: torch.Tensor, extra: torch.Tensor | None
     (dist, id), [nq, k] with k = min(k, n). On the card the rows are split
     into segments (`k3_segments`), a block serves `k3_geometry`'s g queries
     on one segment, and `merge_segments` merges the segments' survivors.
-    Counts launches in `scan_select.launches`.
+    Counts launches as "scan_select".
     """
     dev = _cuda_device("scan_select", luts)
     if dev is None:
         return scan_select_reference(luts, Bt, extra, k, t0)
+    extra, code_bytes = _scan_inputs("scan_select", luts, Bt, extra, t0)
     nq, m, h = luts.shape
     n = Bt.shape[1]
     k = min(k, n)
-    if extra is None:
-        extra = torch.zeros((n,), dtype=torch.float32, device=dev)
-    code_bytes = _code_bytes(Bt)
-    checks = [
-        (luts, luts.dtype == torch.float32, "luts must be f32 [nq, m, h]"),
-        (Bt, code_bytes is not None and Bt.shape[0] == m,
-         "Bt must be uint8 or int32 [m, n]"),
-        (extra, extra.dtype == torch.float32 and tuple(extra.shape) == (n,),
-         "extra must be f32 [n]"),
-    ]
-    if t0 is not None:
-        checks.append((t0, t0.dtype == torch.float32 and tuple(t0.shape) == (nq, 1),
-                       "t0 must be f32 [nq, 1]"))
-    _check("scan_select", dev, checks)
-    if n >= 1 << 31:
-        raise ValueError("scan_select: n must be < 2^31")
     if not select_kernel_fits(k, m, h):
         raise ValueError(f"scan_select: k={k} at m={m}, h={h} exceeds one "
                          "block's shared memory (select_kernel_fits)")
@@ -675,19 +658,13 @@ def scan_select(luts: torch.Tensor, Bt: torch.Tensor, extra: torch.Tensor | None
     out_i = torch.empty((nq, segments, keep), dtype=torch.int32, device=dev)
     vec = int(n * code_bytes % 16 == 0 and Bt.data_ptr() % 16 == 0
               and extra.data_ptr() % 16 == 0)
-    lib = _build.load("scan_select")
-    lib.lsq_select_topk.argtypes = [_P, _P, _I, _P, _P] + [_I] * 10 + [_P, _P, _P]
-    lib.lsq_select_topk.restype = _I
-    err = lib.lsq_select_topk(
+    _build.load("scan_select").lsq_select_topk(
         luts.data_ptr(), Bt.data_ptr(), code_bytes, extra.data_ptr(),
         None if t0 is None else t0.data_ptr(), nq, m, h, n, rows, keep,
         0 if unsorted else 1, g, cap, vec, out_d.data_ptr(), out_i.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(lib, err, "scan_select kernel launch")
-    scan_select.launches += 1
+        torch.cuda.current_stream(dev).cuda_stream, what="scan_select kernel launch")
+    launch_counts.COUNTS["scan_select"] += 1
     return merge_segments(out_d, out_i, k)
-
-scan_select.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -841,26 +818,15 @@ def scan_key(luts: torch.Tensor, Bt: torch.Tensor, extra: torch.Tensor | None,
     `scan_key_reference` for the contract. The kernel appends in no fixed
     order; compare sorted ids. luts [nq, m, h] f32 (rounded to bf16 and
     interleaved per group of queries here, `k4_interleave`), t0 [nq, 1] f32.
-    Counts launches in `scan_key.launches`."""
+    Counts launches as "scan_key"."""
     dev = _cuda_device("scan_key", luts)
     if dev is None:
         return scan_key_reference(luts, Bt, extra, t0, cap)
+    extra, code_bytes = _scan_inputs("scan_key", luts, Bt, extra, t0)
     nq, m, h = luts.shape
     n = Bt.shape[1]
-    if extra is None:
-        extra = torch.zeros((n,), dtype=torch.float32, device=dev)
-    code_bytes = _code_bytes(Bt)
-    _check("scan_key", dev, [
-        (luts, luts.dtype == torch.float32, "luts must be f32 [nq, m, h]"),
-        (Bt, code_bytes is not None and Bt.shape[0] == m,
-         "Bt must be uint8 or int32 [m, n]"),
-        (extra, extra.dtype == torch.float32 and tuple(extra.shape) == (n,),
-         "extra must be f32 [n]"),
-        (t0, t0.dtype == torch.float32 and tuple(t0.shape) == (nq, 1),
-         "t0 must be f32 [nq, 1]"),
-    ])
-    if n >= 1 << 31 or cap < 1:
-        raise ValueError("scan_key: needs n < 2^31 and cap >= 1")
+    if cap < 1:
+        raise ValueError("scan_key: needs cap >= 1")
     g, kq, kr = k4_geometry(m, h, code_bytes, nq)
     if g == 0:
         raise ValueError(f"scan_key: m*h={m * h} bf16 LUTs of 4 queries exceed one "
@@ -878,19 +844,13 @@ def scan_key(luts: torch.Tensor, Bt: torch.Tensor, extra: torch.Tensor | None,
     _, rows = k4_segments(n, nq, g, steps * k4_step(g, kq, kr), sms * per_sm)
     vec = int(n * code_bytes % 16 == 0 and Bt.data_ptr() % 16 == 0
               and extra.data_ptr() % 16 == 0)
-    lib = _build.load("scan_key")
-    lib.lsq_scan_key.argtypes = [_P, _P, _I, _P, _P] + [_I] * 12 + [_P, _P, _P]
-    lib.lsq_scan_key.restype = _I
-    err = lib.lsq_scan_key(
+    _build.load("scan_key").lsq_scan_key(
         hi.data_ptr(), Bt.data_ptr(), code_bytes, extra.data_ptr(), t0.data_ptr(),
         nq, m, h, n, hi.shape[1], g, kq, kr, steps, rows, cap, vec, ids.data_ptr(),
-        count.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(lib, err, "scan_key kernel launch")
-    scan_key.launches += 1
+        count.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
+        what="scan_key kernel launch")
+    launch_counts.COUNTS["scan_key"] += 1
     return ids, count
-
-
-scan_key.launches = 0
 
 
 def _rerank_ids(luts: torch.Tensor, Bt: torch.Tensor, extra: torch.Tensor,
@@ -1001,7 +961,7 @@ def _key_scan_topk(luts: torch.Tensor, Bt: torch.Tensor, extra: torch.Tensor, k:
     cap = append_cap if append_cap is not None else -(-(k * 5 // 2) // 128) * 128
     ids, count = scan_key(luts, Bt, extra, t0, cap)
     exact = _rerank_ids(luts, Bt, extra, ids)
-    sd, si = _pad_cols(*_sort_lex(exact, ids), k)
+    sd, si = lex_topk(exact, ids, k)
     # Certificate: every skipped row x has key(hi(x)) & M >= key(t0) & M, so
     # hi(x) >= T_hi and exact(x) >= T_hi - err, with err bounding |hi - exact|
     # (bf16 LUT rounding, half an ulp of 2^-9 per entry over m entries, and

@@ -19,7 +19,7 @@ from local_search_quantization_torch.ops.adc import (
     prepare_device_codes,
     scan_topk_routed,
 )
-from local_search_quantization_torch.ops.select_kernels import _pad_cols
+from local_search_quantization_torch.ops.select_kernels import lex_topk
 from local_search_quantization_torch.parallel.mesh import (
     DATA_AXIS,
     Mesh,
@@ -61,11 +61,10 @@ def sharded_scan_topk(mesh: Mesh, luts: torch.Tensor, Bt, extra, k: int, *,
     `adc.cuda_route(min(k, shard_n), shard_n, m, h)` on a CUDA mesh and
     "scan" on the CPU. Each shard runs `adc.scan_topk_routed`, whose warm
     start, certificate and deep-k widen rerun that shard's tied queries, so
-    each shard's list is its exact lex top-min(k, shard_n). Shards own
-    ascending id ranges, so one stable sort by distance over the shard-major
-    candidates keeps the lex order, and the merge needs no second
-    certificate across shards. k > shard_n pads a shard's list with
-    (+inf, -1), and a -1 id is never offset into another shard's range.
+    each shard's list is its exact lex top-min(k, shard_n), and `lex_topk`
+    merges the shards' lists with no second certificate across shards,
+    padding with (+inf, -1) where they hold fewer than k; a -1 id is never
+    offset into another shard's range.
 
     precision="bf16" rounds the LUTs once to bf16 here, so every route and
     rerun scans the same rounded tables.
@@ -94,14 +93,12 @@ def sharded_scan_topk(mesh: Mesh, luts: torch.Tensor, Bt, extra, k: int, *,
                                None if extra is None else extra[s], kk,
                                topk_method=_METHODS[method],
                                base_block=min(block, shard_n), precision=precision)
-        d, i = _pad_cols(res.dists.to(home), res.ids.to(home), k)
+        i = res.ids.to(home)
         # A -1 (+inf) slot must stay -1: offset, it would forge an id in
         # another shard's range.
         ids.append(torch.where(i >= 0, i + s * shard_n, -1).to(torch.int32))
-        dists.append(d)
-    d_all, i_all = torch.cat(dists, dim=1), torch.cat(ids, dim=1)
-    d_all, pos = torch.sort(d_all, dim=1, stable=True)
-    return KNNResult(d_all[:, :k], torch.gather(i_all, 1, pos[:, :k]))
+        dists.append(res.dists.to(home))
+    return KNNResult(*lex_topk(torch.cat(dists, dim=1), torch.cat(ids, dim=1), k))
 
 
 def prepare_sharded_codes(mesh: Mesh, B, extra=None, *, block: int = 1 << 15,

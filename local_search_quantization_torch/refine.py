@@ -21,7 +21,7 @@ import numpy as np
 import torch
 
 from local_search_quantization_torch.ops.adc import KNNResult
-from local_search_quantization_torch.ops.select_kernels import _pad_cols, _sort_lex
+from local_search_quantization_torch.ops.select_kernels import lex_topk
 
 __all__ = ["RefineStore", "rerank"]
 
@@ -96,13 +96,6 @@ class RefineStore:
                    dev(a["refine_off"], np.float32), dev(a["refine_scale"], np.float32))
 
 
-def _topk_lex(d: torch.Tensor, ids: torch.Tensor, k: int):
-    """Lexicographic-(dist, id) top-k of the finite candidates of each row
-    (`ivf.topk_lex`, batched): (dists [nq, k] f32, ids [nq, k] int64),
-    (+inf, -1) past the live candidates."""
-    return _pad_cols(*_sort_lex(d, torch.where(torch.isfinite(d), ids, -1)), k)
-
-
 def rerank(store: RefineStore, Q, cand_ids, k: int, *,
            query_chunk: int = 256) -> KNNResult:
     """Exact squared-L2 top-k among each query's candidate ids.
@@ -119,12 +112,9 @@ def rerank(store: RefineStore, Q, cand_ids, k: int, *,
     out_d, out_i = [], []
     for s in range(0, Q.shape[0], query_chunk):
         cq = cand_ids[s:s + query_chunk]
-        live = cq >= 0
         x = store.decode(cq.clamp(min=0))  # [b, c, d]
         dv = x - Q[s:s + query_chunk, None, :]
-        d = (dv * dv).sum(dim=-1)
-        d = torch.where(live, d, float("inf"))
-        dd, ii = _topk_lex(d, torch.where(live, cq, -1), k)
+        dd, ii = lex_topk((dv * dv).sum(dim=-1), cq, k)  # a -1 id comes back (+inf, -1)
         out_d.append(dd)
         out_i.append(ii)
     if not out_d:

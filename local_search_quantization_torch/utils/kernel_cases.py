@@ -10,7 +10,7 @@ the tolerance they state. The cases are the edge shapes those name, kept
 small (n <= 50,000 rows, nq <= 64) so that a run under compute-sanitizer
 ends:
 
-- K1, K5/K6, K7 and K5's stages: the lane maps m=5 at h=40 (idle lanes),
+- K1, K5/K6 and K7: the lane maps m=5 at h=40 (idle lanes),
   h=300 (one element a lane, a masked tail) and h=512 (two loads a row),
   the SIFT map m=7 at h=256, n no multiple of a block, milestones and stats
   on and off;
@@ -184,14 +184,6 @@ def _k7(variant, label, n, d, m, h, integer, seed):
                 _sweeps_make(n, d, m, h, integer, seed),
                 lambda a: ik.icm_sweeps_dissect(*a, **kw),
                 lambda a: ik.icm_sweeps_dissect_reference(*a, **kw), _k7_compare(variant))
-
-
-def _k5_step(step, label, n, d, m, h, integer, seed):
-    return Case(f"K5 step {step} {label}", ("lsq_icm_sweeps_step",),
-                {"step": ik.SWEEP_STEPS.index(step)},
-                _sweeps_make(n, d, m, h, integer, seed),
-                lambda a: ik.icm_sweeps_step(*a, icmiter=2, step=step),
-                lambda a: ik.fused_icm_sweeps_reference(*a, icmiter=2, variant="v2"), _same)
 
 
 # ---------------------------------------------------------------------------
@@ -508,9 +500,6 @@ CASES: tuple[Case, ...] = (
       for v in ik.DISSECT_VARIANTS),
     _k7("full", "m=5 h=40 n=1001", 1001, 16, 5, 40, False, 12),
     _k7("mmonly", "m=5 h=40 n=1001", 1001, 16, 5, 40, False, 12),
-    *(_k5_step(s, "m=7 h=256 n=1030 integer", 1030, 32, 7, 256, True, 11)
-      for s in ik.SWEEP_STEPS),
-    _k5_step("interleaved", "m=5 h=136 n=515", 515, 16, 5, 136, False, 13),
     _k2_dense("n=30007 nq=33 uint8 k=100", _N, 33, 7, 256, torch.uint8, 100, 21),
     _k2_dense("n=30007 nq=33 int32 k=1", _N, 33, 7, 256, torch.int32, 1, 22),
     _k2_dense("n=30007 nq=1 uint8 k=40000 (k >= n)", _N, 1, 7, 256, torch.uint8, 40_000, 23),
@@ -562,11 +551,7 @@ CASES: tuple[Case, ...] = (
 def kernel_launches() -> int:
     """Every wrapper's launch count, on the path or not."""
     c = launch_counts.read()
-    return (sum(c[name] for name in ("ils_encode", "icm_sweeps_v2", "icm_sweeps_v1",
-                                     "icm_sweeps_dissect", "scan_select", "scan_key",
-                                     "k2_filter", "k2_select", "scan_topk_dense", "ivf_scan",
-                                     "ivf_merge"))
-            + sum(ik.icm_sweeps_step.launches.values()) + l2_probe.l2_gather.launches)
+    return sum(c[key] for key in launch_counts.LAUNCHES)
 
 
 def _poison_allocator(dev, byte: int) -> None:

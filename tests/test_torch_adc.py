@@ -15,12 +15,8 @@ import torch
 from local_search_quantization_tpu.ops import adc as jadc
 from local_search_quantization_tpu.ops.select_pallas import fused_scan_topk
 from local_search_quantization_torch.ops import adc as tadc
-from local_search_quantization_torch.ops.select_kernels import (
-    k2_filter,
-    k2_select,
-    scan_topk,
-    scan_topk_reference,
-)
+from local_search_quantization_torch.ops import launch_counts
+from local_search_quantization_torch.ops.select_kernels import scan_topk, scan_topk_reference
 
 torch.set_num_threads(1)
 
@@ -134,9 +130,10 @@ def test_lut_scan_block_matches_jax_gather_mode():
 
 def test_k2_wrapper_routes_cpu_to_plain_version_and_rejects_other_devices():
     luts, B, extra = _integer_case(500, 3, 4, 16, seed=9)
-    before = (k2_filter.launches, k2_select.launches, scan_topk.dense_launches)
+    keys = ("k2_filter", "k2_select", "scan_topk_dense")
+    before = [launch_counts.read()[key] for key in keys]
     d, i = scan_topk(_t(luts), _t(B.T), _t(extra), 20)
-    assert (k2_filter.launches, k2_select.launches, scan_topk.dense_launches) == before
+    assert [launch_counts.read()[key] for key in keys] == before
     od, oi = _lex_oracle(luts, B, extra, 20)
     np.testing.assert_array_equal(i.numpy(), oi)
     with pytest.raises(ValueError, match="unsupported device"):

@@ -16,6 +16,7 @@ from local_search_quantization_tpu.ops import icm as jicm
 from local_search_quantization_tpu.ops import luts as jluts
 from local_search_quantization_tpu.ops.icm_pallas import fused_ils_encode
 from local_search_quantization_torch.ops import icm as ticm
+from local_search_quantization_torch.ops import launch_counts
 from local_search_quantization_torch.ops import luts as tluts
 from local_search_quantization_torch.ops.costs import veccost
 from local_search_quantization_torch.ops.icm_kernels import (
@@ -86,11 +87,11 @@ def test_k1_wrapper_routes_cpu_to_plain_version_and_rejects_other_devices():
     orders = _t(np.stack([rng.permutation(m) for _ in range(R)]).astype(np.int32))
     pkeys = _t(rng.random((R, n, m), dtype=np.float32))
     pcodes = _t(rng.integers(0, h, (R, n, npert), dtype=np.int32))
-    before = ils_encode_streamed.launches
+    before = launch_counts.read()["ils_encode"]
     got = ils_encode_streamed(u, b, xsq, _t(B0), orders, pkeys, pcodes, icmiter=2)
     want = ils_encode_streamed_reference(u, b, xsq, _t(B0), orders, pkeys, pcodes,
                                          icmiter=2)
-    assert ils_encode_streamed.launches == before  # no kernel on the CPU
+    assert launch_counts.read()["ils_encode"] == before  # no kernel on the CPU
     np.testing.assert_array_equal(got[0].numpy(), want[0].numpy())
     meta = [t.to("meta") for t in (u, b, xsq, _t(B0), orders, pkeys, pcodes)]
     with pytest.raises(ValueError, match="unsupported device"):

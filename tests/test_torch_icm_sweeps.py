@@ -17,7 +17,7 @@ from local_search_quantization_tpu.ops import icm as jicm
 from local_search_quantization_tpu.ops import icm_pallas
 from local_search_quantization_tpu.ops import luts as jluts
 from local_search_quantization_torch.ops import icm as ticm
-from local_search_quantization_torch.ops import icm_kernels
+from local_search_quantization_torch.ops import icm_kernels, launch_counts
 from local_search_quantization_torch.ops import luts as tluts
 from local_search_quantization_torch.ops.costs import veccost
 from local_search_quantization_torch.ops.icm_kernels import (
@@ -89,24 +89,6 @@ def test_sweeps_plain_versions_match_pallas_kernels_at_other_widths(variant, h):
     assert (tB.numpy() != B0).any()
 
 
-@pytest.mark.parametrize("step", icm_kernels.SWEEP_STEPS)
-def test_sweep_steps_are_k5_on_the_cpu(step):
-    """Every stage of K5's redesign computes K5: on the CPU each takes K5's
-    plain version, from the pairwise table or the j-stacked one."""
-    rng, X, C, B0 = _integer_fixture(n=48, m=3, h=24, seed=7)
-    u = tluts.get_unaries(_t(X), _t(C))
-    b16 = tluts.get_binaries(_t(C)).to(torch.bfloat16)
-    order = torch.tensor([1, 2, 0], dtype=torch.int32)
-    want = fused_icm_sweeps_reference(_t(B0), u, b16, order, icmiter=2, variant="v2")
-    before = dict(icm_kernels.icm_sweeps_step.launches)
-    for table in (b16, binaries_to_j_stacked(b16)):
-        got = icm_kernels.icm_sweeps_step(_t(B0), u, table, order, icmiter=2, step=step)
-        np.testing.assert_array_equal(got.numpy(), want.numpy())
-    assert icm_kernels.icm_sweeps_step.launches == before  # no kernel on the CPU
-    with pytest.raises(ValueError, match="step"):
-        icm_kernels.icm_sweeps_step(_t(B0), u, b16, order, icmiter=2, step="ahead")
-
-
 def test_sweeps_variants_agree_with_gather_sweeps_on_integer_tables():
     """On exact tables both variants are the gather sweeps of icm.py: the
     orders of summation differ, the sums do not."""
@@ -136,13 +118,13 @@ def test_sweeps_wrapper_routes_cpu_to_plain_version_and_rejects_other_devices():
     u = tluts.get_unaries(_t(X), _t(C))
     b16 = tluts.get_binaries(_t(C)).to(torch.bfloat16)
     order = torch.tensor([3, 1, 0, 2], dtype=torch.int32)
-    before = dict(fused_icm_sweeps.launches)
+    before = {v: launch_counts.read()[f"icm_sweeps_{v}"] for v in ("v2", "v1")}
     for variant in ("v2", "v1"):
         got = fused_icm_sweeps(_t(B0), u, b16, order, icmiter=1, variant=variant)
         want = fused_icm_sweeps_reference(_t(B0), u, b16, order, icmiter=1,
                                           variant=variant)
         np.testing.assert_array_equal(got.numpy(), want.numpy())
-    assert fused_icm_sweeps.launches == before  # no kernel on the CPU
+    assert {v: launch_counts.read()[f"icm_sweeps_{v}"] for v in ("v2", "v1")} == before
     with pytest.raises(ValueError, match="unsupported device"):
         fused_icm_sweeps(_t(B0).to("meta"), u.to("meta"), b16.to("meta"),
                          order.to("meta"), icmiter=1)

@@ -25,6 +25,7 @@ import torch
 
 from local_search_quantization_tpu.ops import luts as jluts
 from local_search_quantization_tpu.ops.icm_pallas import fused_ils_encode
+from local_search_quantization_torch.ops import launch_counts
 from local_search_quantization_torch.ops import luts as tluts
 from local_search_quantization_torch.ops.icm_kernels import (
     _k1_functions,
@@ -181,9 +182,9 @@ def test_visits_needed_runs_the_plain_loop_on_the_plain_versions_inputs():
 def test_ils_encode_streamed_routes_cpu_to_plain_version_and_checks_its_device():
     args = _inputs(48, 8, 4, 16, 2, 2, seed=2, integer=True)
     want = ils_encode_streamed_reference(*args, icmiter=2, milestones=(1,), with_stats=True)
-    before = ils_encode_streamed.launches
+    before = launch_counts.read()["ils_encode"]
     got = ils_encode_streamed(*args, icmiter=2, milestones=(1,), with_stats=True)
-    assert ils_encode_streamed.launches == before  # no kernel on the CPU
+    assert launch_counts.read()["ils_encode"] == before  # no kernel on the CPU
     for g, w in zip(got, want):
         torch.testing.assert_close(g, w, rtol=0, atol=0)
     meta = [t.to("meta") for t in args]

@@ -15,6 +15,7 @@ import pytest
 import torch
 
 from local_search_quantization_tpu.ops import select_pallas as sp
+from local_search_quantization_torch.ops import launch_counts
 from local_search_quantization_torch.ops import select_kernels as sk
 
 torch.set_num_threads(2)
@@ -124,9 +125,10 @@ def test_k2_select_reference_sorts_keys_and_certifies():
     assert ok.tolist() == [True, True, False, False]
     for q in range(4):
         f = min(int(count[q]), 64)
-        want_d, want_i = sk._sort_lex(d[q:q + 1, :f], ids[q:q + 1, :f].to(torch.int32))
+        lex = np.lexsort((ids[q, :f].numpy(), d[q, :f].numpy()))
+        want_d, want_i = d[q, :f][lex], ids[q, :f][lex].to(torch.int32)
         w = min(f, 10)
-        assert torch.equal(od[q, :w], want_d[0, :w]) and torch.equal(oi[q, :w], want_i[0, :w])
+        assert torch.equal(od[q, :w], want_d[:w]) and torch.equal(oi[q, :w], want_i[:w])
         assert torch.isinf(od[q, w:]).all() and (oi[q, w:] == -1).all()
 
 
@@ -183,7 +185,8 @@ def test_dense_work_bytes():
 
 def test_k2_wrappers_take_the_plain_version_on_the_cpu_only():
     luts, Bt, extra = _t(*_case(3000, 2, 3, 16, seed=6))
-    counts = (sk.scan_topk.dense_launches, sk.k2_filter.launches, sk.k2_select.launches)
+    keys = ("scan_topk_dense", "k2_filter", "k2_select", "scan_topk_failed")
+    counts = [launch_counts.read()[key] for key in keys]
     want = sk.scan_topk_reference(luts, Bt, extra, 40)
     _assert_same(sk.scan_topk(luts, Bt, extra, 40), want)
     _assert_same(sk.scan_topk_dense(luts, Bt, extra, 40), want)
@@ -194,5 +197,4 @@ def test_k2_wrappers_take_the_plain_version_on_the_cpu_only():
     got = sk.k2_select(cand, count, 40, 512)
     for g, w in zip(got, sk.k2_select_reference(cand, count, 40, 512)):
         assert torch.equal(g, w)
-    assert counts == (sk.scan_topk.dense_launches, sk.k2_filter.launches,
-                      sk.k2_select.launches)
+    assert counts == [launch_counts.read()[key] for key in keys]

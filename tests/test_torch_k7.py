@@ -16,6 +16,7 @@ import torch
 from local_search_quantization_tpu.ops import icm_pallas
 from local_search_quantization_tpu.ops import luts as jluts
 from local_search_quantization_torch.ops import icm as ticm
+from local_search_quantization_torch.ops import launch_counts
 from local_search_quantization_torch.ops import luts as tluts
 from local_search_quantization_torch.ops.icm_kernels import (
     DISSECT_VARIANTS,
@@ -148,12 +149,12 @@ def test_j_stacked_table_gives_the_same_results():
 def test_wrapper_routes_cpu_to_plain_version_and_rejects_other_devices():
     _, _, B0, u, b, order = _fixture(n=32)
     b16 = b.to(torch.bfloat16)
-    before = dict(icm_sweeps_dissect.launches)
+    before = launch_counts.read()["dissect"]
     for variant in DISSECT_VARIANTS:
         got = icm_sweeps_dissect(B0, u, b16, order, icmiter=1, variant=variant)
         want = icm_sweeps_dissect_reference(B0, u, b16, order, icmiter=1, variant=variant)
         assert all(torch.equal(g, w) for g, w in zip(got, want)), variant
-    assert icm_sweeps_dissect.launches == before  # no kernel on the CPU
+    assert launch_counts.read()["dissect"] == before  # no kernel on the CPU
     with pytest.raises(ValueError, match="unsupported device"):
         icm_sweeps_dissect(B0.to("meta"), u.to("meta"), b16.to("meta"), order.to("meta"),
                            icmiter=1, variant="full")

@@ -1,12 +1,13 @@
 """The catalogue of kernel cases (`utils/kernel_cases.py`) on the CPU.
 
 Every C entry point in `csrc/*.cu` that launches a kernel must have a case,
-for each variant or step it accepts and each code layout it takes, so that a
+for each variant it accepts and each code layout it takes, so that a
 kernel added without one fails here. Each case's plain half runs at its own
 shapes (the wrappers take their plain versions for CPU tensors); the card
 runs the kernel halves (`tests/test_torch_kernels_gpu.py`, chip_smoke.py).
 """
 
+import ctypes
 import os
 import re
 import sys
@@ -87,11 +88,9 @@ def test_every_launching_entry_point_has_a_case_for_each_value_it_accepts():
     entries = _launching_entries()
     # The parse finds the entry points that launch, and only those.
     assert {"lsq_ils_encode", "lsq_icm_sweeps_v2", "lsq_icm_sweeps_v1",
-            "lsq_icm_sweeps_dissect", "lsq_icm_sweeps_step", "lsq_scan_topk",
-            "lsq_k2_filter", "lsq_k2_select", "lsq_select_topk", "lsq_scan_key",
-            "lsq_ivf_scan", "lsq_l2_gather"} == set(entries)
+            "lsq_icm_sweeps_dissect", "lsq_scan_topk", "lsq_k2_filter", "lsq_k2_select",
+            "lsq_select_topk", "lsq_scan_key", "lsq_ivf_scan", "lsq_l2_gather"} == set(entries)
     assert entries["lsq_icm_sweeps_dissect"]["variant"] == {0, 1, 2, 3, 4}
-    assert entries["lsq_icm_sweeps_step"]["step"] == {0, 1, 2}
     assert entries["lsq_scan_key"]["code_bytes"] == {1, 4}
     assert entries["lsq_ivf_scan"]["kcap"] == {32, 256, 2048}
     for entry, params in entries.items():
@@ -102,6 +101,37 @@ def test_every_launching_entry_point_has_a_case_for_each_value_it_accepts():
             assert values <= covered, f"{entry}: {param} {values - covered} has no case"
     names = [c.name for c in kc.CASES]
     assert len(set(names)) == len(names)
+
+
+_CTYPES = {"int": ctypes.c_int, "long long": ctypes.c_longlong, "unsigned": ctypes.c_uint,
+           "void*": ctypes.c_void_p, "const void*": ctypes.c_void_p}
+
+
+@pytest.mark.parametrize("source", _build.KERNELS)
+def test_build_binds_every_entry_point_of_a_source_as_it_is_declared(source):
+    """`_build.ENTRIES` holds every function of the source's `extern "C"`
+    block (but `lsq_error_string`, which `Library` binds itself) with the
+    C types of its parameters and result; the entries that launch return a
+    checked cudaError_t (restype None there)."""
+    with open(os.path.join(_CSRC, source + ".cu")) as f:
+        src = re.sub(r"//[^\n]*", "", f.read())
+    block = src.index('extern "C" {')
+    declared = {}
+    for m in re.finditer(r"^(int|long long|const char\*)\s+(lsq_\w+)\(([^)]*)\)",
+                         _body(src, block + len('extern "C" ')), re.M):
+        params = [re.sub(r"\s*\w+$", "", a.strip()) for a in m.group(3).split(",") if a.strip()]
+        declared[m.group(2)] = ([_CTYPES[p.replace(" *", "*")] for p in params], m.group(1))
+    assert declared.pop("lsq_error_string")[1] == "const char*"
+    launching = _launching_entries()
+    bound = _build.ENTRIES[source]
+    assert set(bound) == set(declared)
+    for entry, (argtypes, restype) in bound.items():
+        want_args, want_ret = declared[entry]
+        assert argtypes == list(want_args), entry
+        if entry in launching:
+            assert restype is None and want_ret == "int", entry
+        else:
+            assert restype == _CTYPES[want_ret], entry
 
 
 @pytest.mark.parametrize("case", kc.CASES, ids=[c.name for c in kc.CASES])

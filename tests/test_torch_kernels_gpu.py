@@ -47,6 +47,12 @@ from local_search_quantization_torch.utils import kernel_cases
 pytestmark = pytest.mark.gpu
 
 
+def _counts(*keys):
+    """The counters `keys` of `launch_counts.read()`, as a list."""
+    c = launch_counts.read()
+    return [c[key] for key in keys]
+
+
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
@@ -91,11 +97,11 @@ def _k1_inputs(dev, n, d, m, h, R, npert, integer, seed=0):
 def test_k1_kernel_matches_plain_version(cuda, shape):
     n, d, m, h, R, npert, integer = shape
     args = _k1_inputs(cuda, n, d, m, h, R, npert, integer)
-    before = ils_encode_streamed.launches
+    before = _counts("ils_encode")[0]
     got = ils_encode_streamed(*args, icmiter=2, milestones=(1, R), with_stats=True)
     want = ils_encode_streamed_reference(*args, icmiter=2, milestones=(1, R),
                                          with_stats=True)
-    assert ils_encode_streamed.launches == before + 1
+    assert _counts("ils_encode")[0] == before + 1
     for g, w in zip(got, want):
         torch.testing.assert_close(g, w, rtol=0, atol=0)
 
@@ -193,11 +199,11 @@ def test_k1_refuses_milestones_it_would_leave_unwritten_on_the_card(cuda):
     milestones outside [1, rounds], repeated or out of order before it
     launches; a valid list still gives the plain version's outputs."""
     args = _k1_inputs(cuda, 512, 16, 4, 32, 2, 2, False)
-    before = ils_encode_streamed.launches
+    before = _counts("ils_encode")
     for milestones in ((0,), (3,), (2, 1), (1, 1)):
         with pytest.raises(ValueError, match="milestones"):
             ils_encode_streamed(*args, icmiter=1, milestones=milestones)
-    assert ils_encode_streamed.launches == before
+    assert _counts("ils_encode") == before
     got = ils_encode_streamed(*args, icmiter=1, milestones=(1, 2))
     want = ils_encode_streamed_reference(*args, icmiter=1, milestones=(1, 2))
     for g, w in zip(got, want):
@@ -234,13 +240,13 @@ def test_k2_kernel_matches_plain_version(cuda, n, nq, m, h, k, n_inf):
     want = scan_topk_reference(lut, Bt, extra, k)
     layouts = (torch.int32,) if h > 256 else (torch.uint8, torch.int32)
     for dtype in layouts:
-        staged, dense = sk.k2_filter.launches, scan_topk.dense_launches
+        staged, dense = _counts("k2_filter", "scan_topk_dense")
         got = scan_topk(lut, Bt.to(dtype).contiguous(), extra, k)
         # n >= 65,536: one filter launch, and a dense one if a query failed
         # its certificate; smaller n: the dense path alone.
-        assert sk.k2_filter.launches == staged + (n >= 1 << 16)
+        assert _counts("k2_filter")[0] == staged + (n >= 1 << 16)
         if n < 1 << 16:
-            assert scan_topk.dense_launches == dense + 1
+            assert _counts("scan_topk_dense")[0] == dense + 1
         torch.testing.assert_close(got[0], want[0], rtol=0, atol=0)
         torch.testing.assert_close(got[1], want[1], rtol=0, atol=0)
 
@@ -268,9 +274,9 @@ def _dense_same(lut, Bt, extra, k, want=None):
         want = scan_topk_reference(lut, Bt, extra, k)
     nq, n = lut.shape[0], Bt.shape[1]
     qb = max(1, min(nq, sk._DENSE_QUERIES, sk._SCRATCH_ELEMS // n))
-    before = scan_topk.dense_launches
+    before = _counts("scan_topk_dense")[0]
     d, i = sk.scan_topk_dense(lut, Bt, extra, k)
-    assert scan_topk.dense_launches == before + -(-nq // qb)
+    assert _counts("scan_topk_dense")[0] == before + -(-nq // qb)
     assert torch.equal(d, want[0]) and torch.equal(i, want[1])
 
 
@@ -391,11 +397,7 @@ def test_k2_dense_makes_no_host_sync(cuda):
 def test_k2_dense_rules_mirror_the_library(cuda):
     """The dense path's tile and workspace size in Python agree with
     csrc/scan_topk.cu's."""
-    import ctypes
-
     lib = _build.load("scan_topk")
-    lib.lsq_dense_work_bytes.argtypes = [ctypes.c_int] * 3
-    lib.lsq_dense_work_bytes.restype = ctypes.c_longlong
     assert lib.lsq_dense_tile() == sk._DENSE_TILE
     for nq, n in ((1, 4000), (1, 10_000_000), (21, 10_000_000), (256, 1 << 20)):
         segs, rows = sk.dense_segments(n, nq, 132)
@@ -444,31 +446,13 @@ def _sweeps_inputs(dev, n, d, m, h, integer, seed=0):
 def test_icm_sweeps_kernels_match_plain_version(cuda, variant, shape):
     n, d, m, h, icmiter, integer = shape
     args = _sweeps_inputs(cuda, n, d, m, h, integer)
-    before = fused_icm_sweeps.launches[variant]
+    before = _counts(f"icm_sweeps_{variant}")[0]
     got = fused_icm_sweeps(*args, icmiter=icmiter, variant=variant)
     want = fused_icm_sweeps_reference(*args, icmiter=icmiter, variant=variant)
-    assert fused_icm_sweeps.launches[variant] == before + 1
+    assert _counts(f"icm_sweeps_{variant}")[0] == before + 1
     assert got.dtype == torch.int32
     torch.testing.assert_close(got, want, rtol=0, atol=0)
     assert (got != args[0]).any()
-
-
-@pytest.mark.parametrize("shape", [(4096, 32, 7, 256, 2, True), (2048, 16, 4, 136, 3, False)])
-def test_k5_stages_give_k5s_codes(cuda, shape):
-    """Every stage of K5's redesign (the first port's visit, its loads
-    hoisted, the packed kernel) gives K5's codes, one launch each."""
-    from local_search_quantization_torch.ops.icm_kernels import SWEEP_STEPS, icm_sweeps_step
-
-    n, d, m, h, icmiter, integer = shape
-    args = _sweeps_inputs(cuda, n, d, m, h, integer)
-    want = fused_icm_sweeps_reference(*args, icmiter=icmiter, variant="v2")
-    for step in SWEEP_STEPS:
-        before = icm_sweeps_step.launches[step]
-        got = icm_sweeps_step(*args, icmiter=icmiter, step=step)
-        assert icm_sweeps_step.launches[step] == before + 1
-        torch.testing.assert_close(got, want, rtol=0, atol=0)
-    with pytest.raises(ValueError):  # eight candidates a lane only
-        icm_sweeps_step(*_sweeps_inputs(cuda, 64, 8, 3, 64, True), icmiter=1, step="packed")
 
 
 def test_fused_ils_encode_on_the_card_runs_k5_every_round(cuda):
@@ -478,12 +462,11 @@ def test_fused_ils_encode_on_the_card_runs_k5_every_round(cuda):
     rng = np.random.default_rng(1)
     X = torch.as_tensor(rng.normal(size=(2048, 32)).astype(np.float32), device=cuda)
     C = torch.as_tensor(rng.normal(size=(7, 64, 32)).astype(np.float32), device=cuda)
-    k1, k5 = ils_encode_streamed.launches, fused_icm_sweeps.launches["v2"]
+    k1, k5 = _counts("ils_encode", "icm_sweeps_v2")
     gen = torch.Generator(device=cuda).manual_seed(0)
     res = icm.ils_encode(gen, X, B0, C, ilsiter=5, icmiter=2, npert=2,
                          condition_mode="fused")
-    assert fused_icm_sweeps.launches["v2"] == k5 + 5
-    assert ils_encode_streamed.launches == k1
+    assert _counts("ils_encode", "icm_sweeps_v2") == [k1, k5 + 5]
     cost0 = icm.cost_from_luts((X * X).sum(-1), luts.get_unaries(X, C),
                                luts.get_binaries(C), B0)
     assert (res.cost <= cost0).all() and (res.cost < cost0).any()
@@ -492,10 +475,7 @@ def test_fused_ils_encode_on_the_card_runs_k5_every_round(cuda):
 def test_ils_kernel_fits_mirrors_the_library(cuda):
     """The pure shape rule that routes "kernel" to "matmul" agrees with
     the K1 library's own size functions."""
-    import ctypes
-
     lib = _build.load("ils_encode")
-    lib.lsq_ils_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
     for m in (1, 4, 7, 8, 16, 32):
         for h in (16, 256, 512, 1000, 1024, 1025, 2048):
             lib_fits = (lib.lsq_ils_smem_bytes(m, h) <= 227 * 1024
@@ -532,11 +512,11 @@ def test_k7_matches_plain_version(cuda, variant, shape):
     n, d, m, h, icmiter, integer = shape
     B, u, b16, order = _sweeps_inputs(cuda, n, d, m, h, integer)
     stacked = binaries_to_j_stacked(b16).contiguous()
-    before = icm_sweeps_dissect.launches[variant]
+    before = launch_counts.read()["dissect"][variant]
     codes, sink = icm_sweeps_dissect(B, u, stacked, order, icmiter=icmiter, variant=variant)
     want_codes, want_sink = icm_sweeps_dissect_reference(B, u, b16, order, icmiter=icmiter,
                                                          variant=variant)
-    assert icm_sweeps_dissect.launches[variant] == before + 1
+    assert launch_counts.read()["dissect"][variant] == before + 1
     torch.testing.assert_close(codes, want_codes, rtol=0, atol=0)
     if variant in ("noargmin", "mmonly"):
         torch.testing.assert_close(sink, want_sink, rtol=1e-5,
@@ -556,10 +536,10 @@ def test_l2_probe_sums_the_rows_it_claims(cuda, dtype, wide):
     elems = 512 // torch.tensor([], dtype=dtype).element_size()
     gen = torch.Generator(device=cuda).manual_seed(1)
     table = torch.randint(-2, 3, (12_544, elems), generator=gen, device=cuda).to(dtype)
-    before = l2_probe.l2_gather.launches
+    before = _counts("l2_gather")[0]
     got = l2_probe.l2_gather(table, warps=2048, rows_per_warp=16, wide=wide, seed=5)
     want = l2_probe.l2_gather_reference(table, warps=2048, rows_per_warp=16, seed=5)
-    assert l2_probe.l2_gather.launches == before + 1
+    assert _counts("l2_gather")[0] == before + 1
     torch.testing.assert_close(got, want, rtol=0, atol=0)
     rate = l2_probe.l2_gather_rate(512, 12_544 * 512, dtype, wide=wide, device=cuda,
                                    warps=1024, rows_per_warp=32, reps=2)
@@ -596,9 +576,9 @@ def test_k3_kernel_matches_plain_version(cuda, n, nq, m, h, k, n_inf, warm):
     layouts = (torch.int32,) if h > 256 else (torch.uint8, torch.int32)
     for dtype in layouts:
         Bc = Bt.to(dtype).contiguous()
-        before = scan_select.launches
+        before = _counts("scan_select")[0]
         d, i = scan_select(lut, Bc, extra, k, t0)
-        assert scan_select.launches == before + 1
+        assert _counts("scan_select")[0] == before + 1
         torch.testing.assert_close(d, want_d[:, :kk], rtol=0, atol=0)
         torch.testing.assert_close(i, want_i[:, :kk], rtol=0, atol=0)
         k2_d, k2_i = fused_scan_topk(lut, Bc, extra, k=k, t0=t0, variant="grouped")
@@ -649,9 +629,9 @@ def test_k4_kernel_matches_plain_version(cuda, n, nq, m, h, rank, cap):
     want_ids, want_count = scan_key_reference(lut, Bt, extra, t0, cap)
     layouts = (torch.int32,) if h > 256 else (torch.uint8, torch.int32)
     for dtype in layouts:
-        before = scan_key.launches
+        before = _counts("scan_key")[0]
         ids, count = scan_key(lut, Bt.to(dtype).contiguous(), extra, t0, cap)
-        assert scan_key.launches == before + 1
+        assert _counts("scan_key")[0] == before + 1
         assert torch.equal(count, want_count) and torch.equal(count, all_count)
         filled = torch.clamp(count, max=cap)
         for q in range(nq):
@@ -711,12 +691,7 @@ def test_k4_every_built_geometry_matches_plain_version(cuda, geometry, monkeypat
 
 
 def test_k4_shape_rules_mirror_the_library(cuda):
-    import ctypes
-
     lib = _build.load("scan_key")
-    lib.lsq_key_step.argtypes = [ctypes.c_int] * 3
-    lib.lsq_key_threads.argtypes = [ctypes.c_int]
-    lib.lsq_key_smem_bytes.argtypes = [ctypes.c_int] * 7
     for g, kq, kr in sk._K4_BUILT:
         assert lib.lsq_key_step(g, kq, kr) == sk.k4_step(g, kq, kr)
         assert lib.lsq_key_threads(g) == sk.k4_threads(g)
@@ -751,10 +726,9 @@ def test_key_route_reruns_only_the_failing_queries_on_the_card(cuda, monkeypatch
     Bt = B.t().to(torch.uint8).contiguous()
     failing = int(sk.scan_topk_warm_masked(luts, Bt, None, k=1000, variant="key")[2].sum())
     assert 0 < failing <= 10
-    before, launches = launch_counts.read()["rerun_warm"], scan_key.launches
+    before = _counts("rerun_warm", "scan_key")
     res = run("key")
-    assert (launch_counts.read()["rerun_warm"] - before == failing
-            and scan_key.launches == launches + 1)
+    assert _counts("rerun_warm", "scan_key") == [before[0] + failing, before[1] + 1]
     want = run("grouped")
     assert torch.equal(res.ids, want.ids) and torch.equal(res.dists, want.dists)
 
@@ -772,16 +746,11 @@ def test_k4_t0_inf_appends_every_finite_row_and_flags_overflow(cuda):
 def test_select_kernel_fits_mirrors_the_library(cuda):
     """The pure K3 and K2 shape rules agree with the libraries' own size
     functions."""
-    import ctypes
-
     k2 = _build.load("scan_topk")
-    k2.lsq_scan_smem_bytes.argtypes = [ctypes.c_int] * 2
     for m in (1, 7, 8, 16):
         for h in (16, 256, 1024, 2048):
             assert scan_topk_fits(m, h) == (k2.lsq_scan_smem_bytes(m, h) <= 227 * 1024)
     lib = _build.load("scan_select")
-    lib.lsq_select_cap_keys.argtypes = [ctypes.c_int] * 4
-    lib.lsq_select_step.argtypes = [ctypes.c_int]
     assert lib.lsq_select_rows_unit() == sk._K3_ROWS_UNIT
     for g in (16, 8, 4, 2):
         assert lib.lsq_select_step(g) == sk.k3_step(g)
@@ -840,9 +809,9 @@ def test_k2_filter_matches_plain_version(cuda, n, nq, m, h, rank, cap, n_inf, la
     dtypes = {"both": (torch.uint8, torch.int32), "uint8": (torch.uint8,),
               "int32": (torch.int32,)}[layouts]
     for dtype in dtypes:
-        before = sk.k2_filter.launches
+        before = _counts("k2_filter")[0]
         cand, count = sk.k2_filter(lut, Bt.to(dtype).contiguous(), extra, t0, cap)
-        assert sk.k2_filter.launches == before + 1
+        assert _counts("k2_filter")[0] == before + 1
         assert torch.equal(count, want_n)
         got, want = _sorted_keys(cand, count, cap), _sorted_keys(want_c, want_n, cap)
         for q in range(nq):
@@ -866,9 +835,9 @@ def test_k2_select_matches_a_sort_of_the_same_keys(cuda, nq, cap, k):
     cand = sk._k2_keys(d, ids)
     count = torch.as_tensor(rng.integers(0, 2 * cap + 2, nq).astype(np.int32), device=cuda)
     count[0] = cap  # full, and below k where cap < k
-    before = sk.k2_select.launches
+    before = _counts("k2_select")[0]
     got = sk.k2_select(cand, count, k, cap)
-    assert sk.k2_select.launches == before + 1
+    assert _counts("k2_select")[0] == before + 1
     want = sk.k2_select_reference(cand, count, k, cap)
     for g, w in zip(got, want):
         assert torch.equal(g, w)
@@ -900,11 +869,10 @@ def test_k2_at_1m_rows_matches_plain_version_and_k3(cuda, k2_1m, k, dtype):
     lut, Bt8, extra, want = k2_1m
     Bt = Bt8.to(dtype).contiguous()
     for nq in (1, 32, 1000):
-        before = (sk.k2_filter.launches, sk.k2_select.launches,
-                  scan_topk.dense_launches, scan_topk.failed)
+        keys = ("k2_filter", "k2_select", "scan_topk_dense", "scan_topk_failed")
+        before = _counts(*keys)
         d, i = scan_topk(lut[:nq], Bt, extra, k)
-        assert (sk.k2_filter.launches, sk.k2_select.launches, scan_topk.dense_launches,
-                scan_topk.failed) == (before[0] + 1, before[1] + 1, before[2], before[3])
+        assert _counts(*keys) == [before[0] + 1, before[1] + 1, before[2], before[3]]
         assert torch.equal(d, want[k][0][:nq]) and torch.equal(i, want[k][1][:nq])
         k3 = scan_select(lut[:nq], Bt, extra, k)
         assert torch.equal(d, k3[0]) and torch.equal(i, k3[1])
@@ -913,11 +881,7 @@ def test_k2_at_1m_rows_matches_plain_version_and_k3(cuda, k2_1m, k, dtype):
 def test_k2_fit_rules_mirror_the_library(cuda):
     """The Python rules that route K2 between its staged and dense paths
     agree with csrc/scan_topk.cu's own."""
-    import ctypes
-
     lib = _build.load("scan_topk")
-    lib.lsq_k2_group.argtypes = [ctypes.c_int] * 3
-    lib.lsq_k2_filter_smem_bytes.argtypes = [ctypes.c_int] * 4
     assert lib.lsq_k2_tile() == sk._K2_TILE
     assert lib.lsq_k2_select_max() == sk._K2_SELECT_MAX
     for m in (1, 4, 7, 8, 16, 24, 32, 64):

@@ -16,6 +16,7 @@ import pytest
 import torch
 
 from local_search_quantization_tpu.ops import select_pallas as sp
+from local_search_quantization_torch.ops import launch_counts
 from local_search_quantization_torch.ops import select_kernels as sk
 
 torch.set_num_threads(2)
@@ -217,11 +218,11 @@ def test_select_kernel_fits_and_caps():
 
 def test_wrappers_take_the_plain_version_on_the_cpu_only():
     luts, B, extra, full = _case(seed=4)
-    before = (sk.scan_select.launches, sk.scan_key.launches)
+    before = [launch_counts.read()[key] for key in ("scan_select", "scan_key")]
     d, i = sk.scan_select(_t(luts), _t(B.T), _t(extra), 20, unsorted=True)
     np.testing.assert_array_equal(d.numpy(), full[:, :20])
     sk.scan_key(_t(luts), _t(B.T), _t(extra), _t(full[:, 30:31]), 64)
-    assert (sk.scan_select.launches, sk.scan_key.launches) == before
+    assert [launch_counts.read()[key] for key in ("scan_select", "scan_key")] == before
     with pytest.raises(ValueError, match="unsupported device"):
         sk.scan_select(_t(luts).to("meta"), _t(B.T).to("meta"), None, 20)
     with pytest.raises(ValueError, match="unsupported device"):
