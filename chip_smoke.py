@@ -84,6 +84,16 @@ nothing of JAX. Phases:
    k=1000, nprobe 1, 8, 32 and 1024): dists and ids identical, the
    kernel's time beside the plain version's and the bound of its bytes,
    slices, launches and the peak memory above the store;
+3e. the IVF coarse probes (`csrc/ivf_probes.cu`) against their plain
+   version (`ivf.coarse_probes_reference`) at the IVF cell's shape (1000
+   queries, 16,384 lists, d=128, nprobe 64) and at one query served
+   (nq=1): ids judged as the kernel cases judge them (`kernel_cases.
+   _probes_compare`: near ties by the certain and possible sets, exact
+   ties to the lower id; the slots that differ from the plain version's
+   and their largest f64 score gap, the kernels line's `max_abs_err`),
+   the kernel's time beside the plain version's,
+   the torch form's (`coarse_probes_topk`: GEMM, scores, `torch.topk`) and
+   the bound of its FMAs, its launches and the peak memory it takes;
 4. main path A through `demos/demo_lsq_torch.py`'s functions on the
    synthetic SIFT-statistics corpus (100k train, 1M base, 1000 queries):
    OPQ -> ChainQ -> LSQ training (m=7, h=256, niter=10, ilsiter=8) with
@@ -260,6 +270,8 @@ KERNELS = {
                            "benchmarks/bench_kernel_variants.py:50"),
     # No TPU kernel: the JAX package scans the probed lists on the host.
     "ivf_scan": ("local_search_quantization_torch/csrc/ivf_scan.cu", None),
+    # No TPU kernel: the JAX package chooses the probes in numpy.
+    "ivf_probes": ("local_search_quantization_torch/csrc/ivf_probes.cu", None),
 }
 K2_N, K2_QUERIES, K = 1_000_000, 1000, 1000
 # The card's name and power limit (nvidia-smi), printed beside every time.
@@ -1454,6 +1466,59 @@ def phase_ivf_scan(torch, dev):
     return cell
 
 
+def time_ivf_probes(torch, dev, nq, nlist, d, nprobe, label, seed):
+    """The probes kernel against its plain version and the torch form at one
+    shape. Returns (the largest f64 score gap between the kernel's list and
+    the plain version's in one slot, ms, plain ms, bound ms, bound by, torch
+    form ms)."""
+    from local_search_quantization_torch import ivf
+    from local_search_quantization_torch.utils import kernel_cases
+
+    a = kernel_cases._probes_make(nq, nlist, d, False, seed)(dev)
+    before = read_counters()
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    got = ivf.ivf_probes(*a, nprobe)
+    torch.cuda.synchronize()
+    above = (torch.cuda.max_memory_allocated() - held) / 2**20
+    after = read_counters()
+    want = ivf.coarse_probes_reference(*a, nprobe)
+    bad = kernel_cases._probes_compare(False)(got, want, a)
+    check(bad is None, f"IVF probes {label}: {bad}")
+    Q, CT, cn = (t.double() for t in a)
+    s64 = cn[None, :] - 2.0 * (Q @ CT)
+    differ = int((got != want).sum())
+    gap = float((s64.gather(1, got) - s64.gather(1, want)).abs().max())
+    ms = cuda_ms(torch, lambda: ivf.ivf_probes(*a, nprobe), 50)
+    plain_ms = cuda_ms(torch, lambda: ivf.coarse_probes_reference(*a, nprobe), 5)
+    torch_ms = cuda_ms(torch, lambda: ivf.coarse_probes_topk(*a, nprobe), 50)
+    bound = roofline_ms(2 * nq * nlist * d, nlist * d * 4 + nlist * 4 + nq * d * 4
+                        + nq * nprobe * 8)
+    chunks = ivf.ivf_probe_plan(nq, nlist,
+                                torch.cuda.get_device_properties(dev).multi_processor_count)
+    launched = after["ivf_probes"] - before["ivf_probes"]
+    print(f"[{CARD}] IVF probes {label}: nq={nq} nlist={nlist} d={d} nprobe={nprobe}, "
+          f"{chunks} chunks: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, torch form "
+          f"{torch_ms:.4f} ms, bound {bound[0]:.4f} ms ({bound[1]}; kernel at "
+          f"{bound[0] / ms:.1%}); ids as the plain version's but in {differ} of "
+          f"{got.numel()} slots, f64 score gap there at most {gap:.3e} (near ties within "
+          f"eps_q); launches {launched}; peak {above:.2f} MiB above what was held (ids and "
+          f"workspace)")
+    check(launched == 1 and after["ivf_probes_wide"] == before["ivf_probes_wide"],
+          f"IVF probes {label}: expected one kernel launch")
+    return gap, ms, plain_ms, *bound, torch_ms
+
+
+def phase_ivf_probes(torch, dev):
+    """Phase 3e: the probes kernel at the IVF cell's shape and at one query.
+    Returns the cell's row for the kernels' line."""
+    cell = time_ivf_probes(torch, dev, 1000, 16_384, D, 64, "IVF cell shape", 31)
+    time_ivf_probes(torch, dev, 1, 16_384, D, 64, "one query served", 32)
+    torch.cuda.empty_cache()
+    return cell
+
+
 def mrf_cost_chunked(torch, X, B, C):
     """Per-row MRF cost, the metric ILS accepts in, in 131072-row chunks."""
     from local_search_quantization_torch.ops.icm import cost_from_luts
@@ -1549,7 +1614,7 @@ def drive_path(torch, demo, data, dev, label, mode, init):
 
 
 COUNTED = ("ils_encode", "scan_topk", "icm_sweeps_v2", "icm_sweeps_v1", "scan_select",
-           "scan_key", "icm_sweeps_dissect", "ivf_scan")
+           "scan_key", "icm_sweeps_dissect", "ivf_scan", "ivf_probes")
 
 
 def zero_counters():
@@ -1664,10 +1729,15 @@ def phase_ivf_routes(torch, idx, Q, gt, base):
               f"path C IVF nprobe={p}: ids or dists malformed (a pad row, or not ascending)")
     check(all(b[9] >= a[9] for a, b in zip(recalls, recalls[1:])),
           f"path C IVF: recall@10 falls as nprobe grows: {[r[9] for r in recalls]}")
-    launched = read_counters()["ivf_scan"] - before["ivf_scan"]
-    print(f"path C IVF: the probed scan's kernel launched {launched} times over "
+    after = read_counters()
+    launched = after["ivf_scan"] - before["ivf_scan"]
+    probed = after["ivf_probes"] - before["ivf_probes"]
+    wide = after["ivf_probes_wide"] - before["ivf_probes_wide"]
+    print(f"path C IVF: the probed scan's kernel launched {launched} times, the probes' "
+          f"{probed} times and their torch form {wide} (nprobe={IVF_NLIST}), over "
           f"{2 * 4 - 1} probed searches")
-    check(launched == 7, "path C IVF: a probed search did not launch the kernel")
+    check(launched == 7 and probed == 6 and wide == 1,
+          "path C IVF: a probed search did not take the kernels it should")
     same_d = torch.equal(res.dists, base.dists)
     same_i = torch.equal(res.ids[untied], base.ids[untied].long())
     print(f"path C IVF nprobe={IVF_NLIST}: dists identical to the default route on all "
@@ -2876,6 +2946,7 @@ def main() -> int:
     k4 = phase_k4(torch, k2_inputs, t0, cap)
     del k2_inputs
     ivf_row = phase_ivf_scan(torch, dev)
+    probes_row = phase_ivf_probes(torch, dev)
     launches_ab, path_a = phase_main(torch, demo, data, dev)
     launches_c, recall_c, for_g = phase_serving(torch, data, dev)
     paths = [*launches_ab, launches_c, phase_bench_path(torch, dev)]
@@ -2899,14 +2970,16 @@ def main() -> int:
                                        k1_extra)),
         "scan_topk": k2, "icm_sweeps_v2": (*sweeps["v2"], *sweep_bound),
         "icm_sweeps_v1": (*sweeps["v1"], *sweep_bound), "scan_select": k3,
-        "scan_key": k4, "icm_sweeps_dissect": (*k7, *sweep_bound), "ivf_scan": ivf_row}
-    # No single PyTorch call computes any of these functions: library_ms is
-    # null (torch.topk, the select half of K2 and K3 alone, is printed above).
+        "scan_key": k4, "icm_sweeps_dissect": (*k7, *sweep_bound), "ivf_scan": ivf_row,
+        "ivf_probes": probes_row}
+    # library_ms: the probes' torch form (a GEMM, the scores and torch.topk,
+    # the parent's route). No single PyTorch call computes the other functions
+    # (torch.topk, the select half of K2 and K3 alone, is printed above).
     kernels = [{"name": name, "route": "cuda", "source": src, "replaces": site,
                 "launches": launches[name], "max_abs_err": measured[name][0],
                 "ms": measured[name][1], "plain_ms": measured[name][2],
                 "bound_ms": measured[name][3], "bound_by": measured[name][4],
-                "library_ms": None}
+                "library_ms": measured[name][5] if len(measured[name]) > 5 else None}
                for name, (src, site) in KERNELS.items()]
     # The L2 gather probe's bound where the kernel gathers table rows from L2.
     for entry in kernels:

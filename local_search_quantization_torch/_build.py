@@ -114,6 +114,11 @@ ENTRIES = {
         "lsq_ivf_scan": ([_P, _I, _I, _I, _P, _I, _P, _P, _P, _LL, _P, _P, _I, _I, _I]
                          + [_P] * 5, None),
     },
+    "ivf_probes": {
+        "lsq_ivf_probes_serves": ([_I] * 2, _I),
+        "lsq_ivf_probes_work_words": ([_I] * 3, _LL),
+        "lsq_ivf_probes": ([_P, _I, _I, _P, _P] + [_I] * 3 + [_P] * 3, None),
+    },
     "l2_probe": {
         "lsq_l2_warps_per_block": ([], _I),
         "lsq_l2_rows_per_step": ([], _I),

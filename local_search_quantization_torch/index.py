@@ -536,9 +536,10 @@ class Index:
 
     def _search_ivf(self, Q: torch.Tensor, k: int, nprobe: int) -> adc.KNNResult:
         """The probed scan, then the rows added since the partition was built
-        scanned exhaustively and merged. A CUDA index scans on its device
-        (`ivf.DeviceScan`: the kernel of csrc/ivf_scan.cu, k <= 2048, no host
-        sync; the tail through K2); a CPU index takes the native
+        scanned exhaustively and merged. A CUDA index probes and scans on its
+        device (`ivf.DeviceScan`: the kernels of csrc/ivf_probes.cu, nprobe <=
+        64 and d <= 128 (elsewhere the torch form), and csrc/ivf_scan.cu, k <=
+        2048; no host sync; the tail through K2); a CPU index takes the native
         scanner where it is built, else the numpy oracle. ids are int64.
         Spans: `index.search.ivf.probes` (the coarse probes),
         `index.search.ivf.scan` (the probed scan), `index.search.ivf.tail`

@@ -23,13 +23,17 @@ and padding: `to_arrays`/`from_arrays` read and write its `ivf.npz`, and the
 host functions here (`topk_lex`, `coarse_probes`, `search`, `exhaustive_scan`,
 `merge_knn`) are its numpy functions. `build_partition` trains and assigns
 with torch on the device it is given. `DeviceScan` is the probed scan on the
-index's device: the grouped store uploaded once, probes by a matmul and a
-top-`nprobe`, and `ivf_scan`, which on a CUDA device launches the kernel of
-`csrc/ivf_scan.cu` (each query's probed segments scored in place, the exact
-(dist, id) top-k kept on chip, no read back to the host; the JAX package
-has no kernel here) and on the CPU runs its plain version
-`ivf_scan_reference`: the probed segments' rows gathered a chunk of queries
-at a time, distances summed in `lut_scan_block`'s order, and a
+index's device: the grouped store uploaded once; the probes by `ivf_probes`,
+which on a CUDA device launches the kernel of `csrc/ivf_probes.cu` where it
+serves the shape (each query's coarse scores in registers and its
+top-`nprobe` kept on chip, no [nq, nlist] score matrix in device memory;
+elsewhere the torch form `coarse_probes_topk`) and on the CPU runs its plain
+version `coarse_probes_reference`; and `ivf_scan`, which on a CUDA device
+launches the kernel of `csrc/ivf_scan.cu` (each query's probed segments
+scored in place, the exact (dist, id) top-k kept on chip, no read back to
+the host; the JAX package has no kernel here) and on the CPU runs its plain
+version `ivf_scan_reference`: the probed segments' rows gathered a chunk of
+queries at a time, distances summed in `lut_scan_block`'s order, and a
 lexicographic (dist, id) top-k.
 """
 
@@ -45,8 +49,10 @@ from local_search_quantization_torch.ops import adc, launch_counts
 from local_search_quantization_torch.ops.select_kernels import _check, lex_topk
 
 __all__ = ["DeviceScan", "IVFPartition", "build_partition", "coarse_probes",
-           "exhaustive_scan", "ivf_kcap", "ivf_scan", "ivf_scan_reference", "ivf_slices",
-           "merge_knn", "merge_knn_device", "search", "topk_lex"]
+           "coarse_probes_reference", "coarse_probes_topk", "exhaustive_scan", "ivf_kcap",
+           "ivf_probe_plan", "ivf_probes", "ivf_scan",
+           "ivf_scan_reference", "ivf_slices", "merge_knn", "merge_knn_device", "search",
+           "topk_lex"]
 
 # Candidates (queries x the longest probed list) one chunk of the plain device
 # scan gathers at once: some ten int64 or f32 temporaries of this many elements.
@@ -65,6 +71,10 @@ _IVF_SLICE_ROWS = 16384
 _IVF_ROWS_PER_K = 8
 _IVF_MAX_SLICES = 256
 _IVF_WORK_KEYS = 1 << 25
+# The coarse probes' kernel (csrc/ivf_probes.cu): the queries a block scores
+# and the lists a tile, one block an SM (its grid is query tiles x chunks).
+_PROBES_QTILE = 64
+_PROBES_CTILE = 256
 
 
 def topk_lex(d: np.ndarray, ids: np.ndarray, k: int):
@@ -384,6 +394,90 @@ def merge_knn(a: adc.KNNResult, b: adc.KNNResult, k: int) -> adc.KNNResult:
 
 
 # ---------------------------------------------------------------------------
+# The coarse probes on the index's device: the kernel, its plain version, and
+# the torch form above the kernel's capacity.
+
+
+def coarse_probes_reference(Q: torch.Tensor, centroidsT: torch.Tensor, cnorms: torch.Tensor,
+                            nprobe: int) -> torch.Tensor:
+    """Plain version of `ivf_probes`, the function of `coarse_probes` on a
+    device: Q [nq, d] f32, centroidsT [d, nlist] f32 (the centroids
+    transposed), cnorms [nlist] f32. Returns [nq, min(nprobe, nlist)] int64:
+    each query's lists of least score cnorms - 2 Q @ centroidsT in (score,
+    list id) order, so that an exact tie goes to the lower id; a list whose
+    score is not finite is never returned, and the slots past the finite
+    scores are -1 (`lex_topk`)."""
+    nq, nlist = Q.shape[0], cnorms.shape[0]
+    sc = cnorms[None, :] - 2.0 * (Q @ centroidsT)
+    ids = torch.arange(nlist, device=Q.device).expand(nq, nlist)
+    return lex_topk(sc, ids, min(nprobe, nlist))[1]
+
+
+def coarse_probes_topk(Q: torch.Tensor, centroidsT: torch.Tensor, cnorms: torch.Tensor,
+                       nprobe: int) -> torch.Tensor:
+    """The torch form of the probes (a GEMM, the scores and `torch.topk`,
+    whose order among exact ties is unspecified): `ivf_probes` takes it
+    where the kernel does not serve the shape. Arguments and result as
+    `coarse_probes_reference`."""
+    sc = cnorms[None, :] - 2.0 * (Q @ centroidsT)
+    return torch.topk(sc, min(nprobe, cnorms.shape[0]), dim=1, largest=False).indices
+
+
+def ivf_probe_plan(nq: int, nlist: int, sms: int) -> int:
+    """The chunks the probes kernel cuts the lists into (its grid is query
+    tiles of `_PROBES_QTILE` x chunks), from shapes the host knows: as many
+    as fill the card's `sms` SMs in one wave of blocks, one an SM, but each
+    at least a tile of `_PROBES_CTILE` lists (at least 4 P, so that a
+    chunk's P candidates are a small share of its scores)."""
+    qtiles = -(-nq // _PROBES_QTILE)
+    return max(1, min(sms // max(qtiles, 1), nlist // _PROBES_CTILE))
+
+
+def ivf_probes(Q: torch.Tensor, centroidsT: torch.Tensor, cnorms: torch.Tensor,
+               nprobe: int) -> torch.Tensor:
+    """Each query's `nprobe` nearest lists, closest first: the function of
+    `coarse_probes_reference` (same arguments and result). On a CUDA device
+    the kernel of csrc/ivf_probes.cu where it serves the shape (nprobe <= 64,
+    d <= 128: the scores in f32 FMAs, no TF32; its workspace and the ids in
+    one allocation; no host sync), counted as "ivf_probes"; elsewhere the
+    torch form `coarse_probes_topk`, the faster there, counted as
+    "ivf_probes_wide". On the CPU the plain version. nprobe is cut to nlist;
+    an nprobe below 1 raises."""
+    dev = Q.device
+    nlist = cnorms.shape[0]
+    nprobe = min(nprobe, nlist)
+    if nprobe < 1:
+        raise ValueError(f"ivf_probes: nprobe={nprobe} (of nlist={nlist}) must be >= 1")
+    if dev.type == "cpu":
+        return coarse_probes_reference(Q, centroidsT, cnorms, nprobe)
+    if dev.type != "cuda":
+        raise ValueError(f"ivf_probes: unsupported device {dev}")
+    nq, d = Q.shape
+    lib = _build.load("ivf_probes")
+    if not lib.lsq_ivf_probes_serves(d, nprobe):
+        launch_counts.COUNTS["ivf_probes_wide"] += 1
+        return coarse_probes_topk(Q, centroidsT, cnorms, nprobe)
+    _check("ivf_probes", dev, [
+        (Q, Q.dtype == torch.float32 and Q.ndim == 2, "Q must be f32 [nq, d]"),
+        (centroidsT, centroidsT.dtype == torch.float32
+         and tuple(centroidsT.shape) == (d, nlist) and nlist < 1 << 31,
+         "centroidsT must be f32 [d, nlist], nlist below 2^31"),
+        (cnorms, cnorms.dtype == torch.float32 and cnorms.ndim == 1,
+         "cnorms must be f32 [nlist]")])
+    if nq == 0:
+        return torch.empty((0, nprobe), dtype=torch.int64, device=dev)
+    chunks = ivf_probe_plan(nq, nlist, torch.cuda.get_device_properties(dev).multi_processor_count)
+    buf = torch.empty(nq * nprobe + lib.lsq_ivf_probes_work_words(nq, chunks, nprobe),
+                      dtype=torch.int64, device=dev)
+    out, work = buf[:nq * nprobe].view(nq, nprobe), buf[nq * nprobe:]
+    lib.lsq_ivf_probes(Q.data_ptr(), nq, d, centroidsT.data_ptr(), cnorms.data_ptr(), nlist,
+                       nprobe, chunks, work.data_ptr(), out.data_ptr(),
+                       torch.cuda.current_stream(dev).cuda_stream, what="ivf_probes kernel launch")
+    launch_counts.COUNTS["ivf_probes"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
 # The probed scan on the index's device: the kernel, and its plain version.
 
 
@@ -535,7 +629,8 @@ class DeviceScan:
         dev = torch.device(device)
         self.device = dev
         self.nlist = part.nlist
-        self.centroids = torch.as_tensor(part.centroids).to(dev)
+        # [d, nlist]: the probes kernel loads a tile of lists for each coordinate.
+        self.centroidsT = torch.as_tensor(np.ascontiguousarray(part.centroids.T)).to(dev)
         self.cnorms = torch.as_tensor(part.cnorms).to(dev)
         self.starts = torch.as_tensor(part.starts[:-1].copy()).to(dev)
         self.lives = torch.as_tensor(part.lives).to(dev)
@@ -547,10 +642,10 @@ class DeviceScan:
         self.mean_rows = float(part.lives.mean()) if part.nlist else 0.0
 
     def probes(self, Q: torch.Tensor, nprobe: int) -> torch.Tensor:
-        """[nq, nprobe] int64 nearest-list ids, closest first (the function
-        of `coarse_probes`; Q in the original space)."""
-        sc = self.cnorms[None, :] - 2.0 * (Q @ self.centroids.T)
-        return torch.topk(sc, min(nprobe, self.nlist), dim=1, largest=False).indices
+        """[nq, min(nprobe, nlist)] int64 nearest-list ids, closest first
+        (the function of `coarse_probes`, ties to the lower id; Q f32 in the
+        original space); see `ivf_probes`."""
+        return ivf_probes(Q.contiguous(), self.centroidsT, self.cnorms, nprobe)
 
     def search(self, luts: torch.Tensor, k: int, probes: torch.Tensor) -> adc.KNNResult:
         """The function of `_numpy_scan` on the device: luts [nq, m, h] f32,

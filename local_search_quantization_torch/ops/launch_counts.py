@@ -8,9 +8,14 @@ CPU every launch count stays 0:
 - `ils_encode` (K1), `icm_sweeps_v2`/`icm_sweeps_v1` (K5/K6),
   `dissect.<variant>` (K7, one key a variant), `scan_select` (K3, also K2's
   pre-scan), `scan_key` (K4), `k2_filter`, `k2_select` and `scan_topk_dense`
-  (K2's stages and its dense path), `ivf_scan` and `ivf_merge` (the probed
-  scan, and its merge where a query has several slices), `l2_gather` (the L2
-  probe, on no path);
+  (K2's stages and its dense path), `ivf_probes` (the coarse probes: a
+  call of the entry point, which launches the scan and then the selection
+  among its chunks' candidates), `ivf_scan` and `ivf_merge`
+  (the probed scan, and its merge where a query has several slices),
+  `l2_gather` (the L2 probe, on no path);
+- `ivf_probes_wide`: the calls of `ivf.ivf_probes` on a CUDA tensor that
+  took the torch form (a shape the kernel does not serve: nprobe above 64
+  or d above 128);
 - `scan_topk_failed`: the queries K2 reran on its dense path after a failed
   certificate;
 - `host_syncs`: the sites on the `Index.add` and `Index.search` paths where
@@ -43,12 +48,12 @@ DISSECT_VARIANTS = ("full", "predwrite", "nowrite", "noargmin", "mmonly")
 # its variants' keys "dissect.<variant>".
 LAUNCHES = ("ils_encode", "icm_sweeps_v2", "icm_sweeps_v1", "icm_sweeps_dissect",
             "scan_select", "scan_key", "k2_filter", "k2_select", "scan_topk_dense",
-            "ivf_scan", "ivf_merge", "l2_gather")
+            "ivf_probes", "ivf_scan", "ivf_merge", "l2_gather")
 COUNTS = dict.fromkeys(
     [key for key in LAUNCHES if key != "icm_sweeps_dissect"]
     + [f"dissect.{v}" for v in DISSECT_VARIANTS]
-    + ["scan_topk_failed", "host_syncs", "search_calls", "add_calls", "rerun_warm",
-       "rerun_widen", "rerun_tournament", "ivf_queries", "ivf_rows_scanned"], 0)
+    + ["scan_topk_failed", "ivf_probes_wide", "host_syncs", "search_calls", "add_calls",
+       "rerun_warm", "rerun_widen", "rerun_tournament", "ivf_queries", "ivf_rows_scanned"], 0)
 # Counters a kernel adds to on the card: {(name of a COUNTS key, device): int64 [1]}.
 _ON_DEVICE: dict[tuple[str, torch.device], torch.Tensor] = {}
 

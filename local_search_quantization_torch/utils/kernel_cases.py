@@ -7,7 +7,8 @@ A case makes its inputs with numpy from a seed, calls the kernel's wrapper
 and its plain PyTorch version on the same tensors, and compares the two as
 chip_smoke.py and tests/test_torch_kernels_gpu.py do: bit for bit, or within
 the tolerance they state. The cases are the edge shapes those name, kept
-small (n <= 50,000 rows, nq <= 64) so that a run under compute-sanitizer
+small (n <= 50,000 rows, nq <= 64, but for the coarse probes' batches of
+1000 queries over at most 1,024 lists) so that a run under compute-sanitizer
 ends:
 
 - K1, K5/K6 and K7: the lane maps m=5 at h=40 (idle lanes),
@@ -21,7 +22,18 @@ ends:
   K4 with a cap that overflows, and the L2 probe;
 - the IVF probed scan: ragged and empty lists, -1 probe slots, tombstoned
   rows, no extra (a PQ store), fewer candidates than k, one query over
-  every list, each k capacity, one slice a query and many (the merge).
+  every list, each k capacity, one slice a query and many (the merge);
+- the IVF coarse probes: the kernel at nq 1, 7 and 1000, nlist 256, 500
+  (one chunk), 1000, 1001 (no multiple of 4: element-wise staging), 1024
+  and 16,384, d 32, 100 and 128, nprobe 1, 8 and 20 (P = 32) and 64 (the
+  largest it serves); integer data,
+  whose scores are exact in f32 and tie often (ids identical to the plain
+  version's), continuous data with duplicated centroids (`_probes_compare`:
+  the near ties by the certain and possible sets, the exact ties to the
+  lower id), a list whose score is not finite and a query whose scores are
+  all not finite (+inf, -inf, NaN); and the shapes it leaves to the torch
+  form (d 960, nprobe 65, 1024, 2048 and nlist), judged by the sets alone
+  (`torch.topk` orders exact ties as it likes).
 
 The wrappers run on the card unless given `--device cpu`; on the CPU they
 take their plain versions, so only the plain halves run. The run stops with
@@ -78,7 +90,8 @@ _POISON_SMALL, _POISON_LARGE = 64, 512 << 20
 class Case:
     """One call of a kernel's wrapper against its plain version.
 
-    entries: the C entry points the call reaches; params: the values it
+    entries: the C entry points the call reaches (none where the wrapper
+    must leave the shape to its torch form); params: the values it
     passes for the entry's switches ({"variant": 3}, {"code_bytes": 1},
     ...), so that the catalogue's coverage can be checked against the
     sources. make(device) -> the inputs (a tuple); kernel(inputs) and
@@ -469,6 +482,129 @@ def _ragged(seed, nlist, lo, hi, empty, big):
     return sizes
 
 
+# The slack on a coarse score: an f32 dot product of d terms is within d *
+# 2^-24 of the exact one, relative to |q| |c|, so two lists' order may flip
+# within twice that; never below the benchmark reference's 2e-5, which is
+# that bound at d = 128 (portbench/reference/ivf.py `COARSE_EPS`).
+def _coarse_eps(d: int) -> float:
+    return max(2e-5, d * 2.0 ** -23)
+
+
+def _probes_make(nq, nlist, d, integer, seed, inf_list=None, inf_query=None):
+    """Inputs of `ivf.ivf_probes`: queries Q [nq, d], the centroids
+    transposed [d, nlist] and their squared norms. Integer data lies in
+    [-8, 8] (every score exact in f32, ties everywhere); continuous data is
+    normal, with every 20th list from the 10th a copy of a lower one and
+    query 0 on the first copy, so that its two nearest lists tie exactly.
+    `inf_list`: a list with an infinite coordinate (its score not finite);
+    `inf_query`: a query with an infinite coordinate (its scores -inf, +inf
+    or NaN, by the sign of the lists' coordinate)."""
+    def make(dev):
+        rng = np.random.default_rng(seed)
+        if integer:
+            C = rng.integers(-8, 9, (nlist, d)).astype(np.float32)
+            Q = rng.integers(-8, 9, (nq, d)).astype(np.float32)
+        else:
+            C = (rng.normal(size=(nlist, d)) * 10).astype(np.float32)
+            Q = (rng.normal(size=(nq, d)) * 10).astype(np.float32)
+            dup = np.arange(10, nlist, 20)
+            C[dup] = C[(rng.random(dup.size) * dup).astype(np.int64)]
+            Q[0] = C[dup[0]]
+        if inf_list is not None:
+            C[inf_list, 0] = np.inf
+        if inf_query is not None:
+            Q[inf_query, 0] = np.inf
+        return (torch.as_tensor(Q, device=dev), torch.as_tensor(np.ascontiguousarray(C.T),
+                                                                device=dev),
+                torch.as_tensor((C * C).sum(1), device=dev))
+    return make
+
+
+def _group_ranks(CT):
+    """(group [nlist], rank [nlist]): the group of lists with identical
+    centroids each list is in, and its rank by id within the group."""
+    nlist = CT.shape[1]
+    _, group = torch.unique(CT.t(), dim=0, return_inverse=True)
+    order = torch.argsort(group * nlist + torch.arange(nlist, device=CT.device))
+    gs = group[order]
+    rank = torch.empty(nlist, dtype=torch.int64, device=CT.device)
+    rank[order] = _run_index(gs[None])[0]
+    return group, rank
+
+
+def _run_index(g):
+    """Each element's index within its run of equal neighbours, row by row."""
+    idx = torch.arange(g.shape[1], device=g.device).expand_as(g)
+    start = torch.ones_like(g, dtype=torch.bool)
+    start[:, 1:] = g[:, 1:] != g[:, :-1]
+    return idx - torch.cummax(torch.where(start, idx, 0), dim=1).values
+
+
+def _probes_compare(exact, ties=True):
+    """The kernel's probes against the plain version's. exact (integer
+    data, exact scores): identical. Else judged as the benchmark reference
+    judges a probe set: with s the exact (f64) scores, t each query's
+    nprobe-th least and eps_q = `_coarse_eps`(d) (|c|max^2 + 2 |q| |c|max),
+    every list below t - eps_q returned, none above t + eps_q, and where the
+    ids differ from the plain version's their scores within eps_q; with
+    `ties`, lists with identical centroids (an exact tie) in order of id,
+    the lowest kept."""
+    def compare(got, want, inputs):
+        if got.shape != want.shape or got.dtype != torch.int64:
+            return f"shape/dtype {tuple(got.shape)} {got.dtype}"
+        if torch.equal(got, want):
+            return None
+        if exact:
+            return f"ids differ in {int((got != want).sum())} slots (exact integer scores)"
+        Q, CT, cn = (t.double() for t in inputs)
+        nlist = cn.shape[0]
+        if bool(((got < 0) | (got >= nlist)).any()):
+            return "an id out of range"
+        srt = torch.sort(got, dim=1).values
+        if bool((srt[:, 1:] == srt[:, :-1]).any()):
+            return "a list returned twice"
+        s = cn[None, :] - 2.0 * (Q @ CT)
+        t = torch.topk(s, got.shape[1], dim=1, largest=False).values[:, -1:]
+        cmax = CT.norm(dim=0).max()
+        eps = _coarse_eps(CT.shape[0]) * (cmax * cmax + 2.0 * Q.norm(dim=1, keepdim=True) * cmax)
+        taken = torch.zeros_like(s, dtype=torch.bool).scatter_(1, got, True)
+        if bool((~taken & (s < t - eps)).any()):
+            return "a certain list is missing"
+        if bool((taken & (s > t + eps)).any()):
+            return "a list outside the possible set"
+        if bool(((got != want) & ((s.gather(1, got) - s.gather(1, want)).abs() > eps)).any()):
+            return "ids out of the plain version's order beyond eps_q"
+        if not ties:
+            return None
+        group, rank = _group_ranks(inputs[1])
+        g = group[got]
+        order = torch.argsort(g * nlist + got, dim=1)
+        gs = torch.gather(g, 1, order)
+        same = gs[:, 1:] == gs[:, :-1]
+        if bool((same & (order[:, 1:] < order[:, :-1])).any()):
+            return "an exact tie out of id order"
+        if bool((rank[torch.gather(got, 1, order)] != _run_index(gs)).any()):
+            return "an exact tie kept a higher id"
+        return None
+    return compare
+
+
+def _probes(label, nq, nlist, d, nprobe, integer, seed, inf_list=None, inf_query=None):
+    """A case the kernel serves (nprobe <= 64, d <= 128)."""
+    return Case(f"IVF probes {label}", ("lsq_ivf_probes",), {},
+                _probes_make(nq, nlist, d, integer, seed, inf_list, inf_query),
+                lambda a: ivf.ivf_probes(*a, nprobe),
+                lambda a: ivf.coarse_probes_reference(*a, nprobe), _probes_compare(integer))
+
+
+def _probes_wide(label, nq, nlist, d, nprobe, seed):
+    """A shape the kernel leaves to the torch form, on continuous data with
+    duplicated lists: the probe sets judged, not the order of exact ties."""
+    return Case(f"IVF probes {label}", (), {}, _probes_make(nq, nlist, d, False, seed),
+                lambda a: ivf.ivf_probes(*a, nprobe),
+                lambda a: ivf.coarse_probes_reference(*a, nprobe), _probes_compare(False, False))
+
+
 def _l2(dtype, wide):
     elems = 512 // torch.tensor([], dtype=dtype).element_size()
 
@@ -540,6 +676,26 @@ CASES: tuple[Case, ...] = (
          2, 40, 7, 256, 2048, dead=100, seed=57),
     _ivf("m=16 h=256 nq=1 p=nlist=25 k=1, a slice a few chunks", _ragged(58, 25, 0, 300, 4, 900),
          1, 25, 16, 256, 1, seed=59),
+    _probes("nq=1000 nlist=1024 d=128 nprobe=64, integer", 1000, 1024, 128, 64, True, 61),
+    _probes("nq=7 nlist=16384 d=128 nprobe=64, duplicated lists", 7, 16_384, 128, 64, False, 62),
+    _probes("nq=1 nlist=16384 d=100 nprobe=1, integer", 1, 16_384, 100, 1, True, 63),
+    _probes("nq=7 nlist=1024 d=128 nprobe=64, integer, a list and a query not finite", 7, 1024,
+            128, 64, True, 65, inf_list=77, inf_query=3),
+    _probes("nq=7 nlist=1001 d=100 nprobe=20, integer", 7, 1001, 100, 20, True, 67),
+    _probes("nq=1000 nlist=256 d=32 nprobe=8, integer, one chunk of one tile", 1000, 256, 32, 8,
+            True, 71),
+    _probes("nq=7 nlist=500 d=128 nprobe=64, duplicated lists, one chunk", 7, 500, 128, 64,
+            False, 72),
+    _probes_wide("nq=7 nlist=1000 d=960 nprobe=1, duplicated lists (the torch form)", 7, 1000,
+                 960, 1, 64),
+    _probes_wide("nq=1000 nlist=1000 d=100 nprobe=nlist, duplicated lists (the torch form)",
+                 1000, 1000, 100, 1000, 66),
+    _probes_wide("nq=33 nlist=16384 d=128 nprobe=1024, duplicated lists (the torch form)", 33,
+                 16_384, 128, 1024, 68),
+    _probes_wide("nq=1 nlist=16384 d=128 nprobe=65, duplicated lists (the torch form)", 1,
+                 16_384, 128, 65, 69),
+    _probes_wide("nq=1 nlist=16384 d=100 nprobe=2048, duplicated lists (the torch form)", 1,
+                 16_384, 100, 2048, 70),
     *(_l2(dtype, wide) for dtype in (torch.bfloat16, torch.float32) for wide in (False, True)),
 )
 
@@ -596,8 +752,10 @@ def run_case(case: Case, dev, fill: str = "none") -> tuple[str | None, int]:
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     bad = case.compare(got, want, inputs)
-    if bad is None and dev.type == "cuda" and launched == 0:
+    if bad is None and dev.type == "cuda" and launched == 0 and case.entries:
         bad = "no kernel launched"
+    if bad is None and dev.type == "cuda" and launched > 0 and not case.entries:
+        bad = f"{launched} kernel launches where the torch form was due"
     for buf, start in guards:
         if bad is None and not bool((buf[start:] == byte).all()):
             bad = "an input's guard bytes changed"
@@ -609,7 +767,7 @@ def run_case(case: Case, dev, fill: str = "none") -> tuple[str | None, int]:
 SANITIZED_KERNELS = ("ils_kernel", "icm_sweeps_kernel", "adc_scan", "dense_hist",
                      "dense_collect", "dense_tie_count", "dense_tie_take", "k2_filter",
                      "k2_select", "scan_select", "scan_key", "ivf_scan", "ivf_merge",
-                     "l2_gather_kernel")
+                     "ivf_probes", "ivf_probes_select", "l2_gather_kernel")
 SANITIZER_TOOLS = ("memcheck", "racecheck", "initcheck", "synccheck")
 # What the sanitizer prints where it cannot instrument the card.
 SANITIZER_REFUSAL = "Device not supported"

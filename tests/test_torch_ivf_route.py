@@ -22,6 +22,7 @@ import json
 import time
 import types
 
+import numpy as np
 import pytest
 import torch
 
@@ -315,3 +316,83 @@ def test_ivf_roofline_counts_the_work():
     assert roofline_ivf.ivf_search_s(nq, nlist, d, rows, m, h, k) == pytest.approx(
         max(ops / roofline.PEAK_F32, nbytes / roofline.HBM))
     assert nbytes / roofline.HBM > ops / roofline.PEAK_F32
+
+
+# The coarse probes' plain version (`ivf.coarse_probes_reference`, what
+# `DeviceScan.probes` runs on the CPU and the oracle of the card's kernel).
+
+
+def _probe_inputs(nq, nlist, d, seed, lim):
+    """Integer queries and centroids in [-lim, lim]: every score exact in f32
+    where d * 3 lim^2 < 2^24."""
+    rng = np.random.default_rng(seed)
+    return (rng.integers(-lim, lim + 1, (nq, d)).astype(np.float32),
+            rng.integers(-lim, lim + 1, (nlist, d)).astype(np.float32))
+
+
+def test_coarse_probes_reference_is_the_numpy_probes_on_tie_free_data():
+    Q, C = _probe_inputs(40, 100, 16, 5, 300)
+    s64 = (C.astype(np.float64) ** 2).sum(1)[None, :] - 2.0 * Q.astype(np.float64) @ C.T
+    assert all(np.unique(row).size == row.size for row in s64)  # no two lists tie
+    part = types.SimpleNamespace(centroids=C, cnorms=(C * C).sum(1), nlist=100)
+    for nprobe in (1, 17, 100):
+        want = tivf.coarse_probes(Q, part, nprobe)
+        got = tivf.coarse_probes_reference(torch.as_tensor(Q), torch.as_tensor(C.T.copy()),
+                                           torch.as_tensor(part.cnorms), nprobe)
+        assert got.dtype == torch.int64
+        np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("nprobe", [1, 2, 5])
+def test_coarse_probes_reference_gives_an_exact_tie_to_the_lower_list(nprobe):
+    """Lists 3 and 9 (and 20) have one centroid, on which query 0 lies: they
+    tie at the least score, and the lower ids come first; with nprobe 1 the
+    tie across the last slot keeps list 3."""
+    Q, C = _probe_inputs(4, 30, 8, 6, 3)
+    C[9] = C[20] = C[3]
+    Q[0] = C[3]
+    got = tivf.coarse_probes_reference(torch.as_tensor(Q), torch.as_tensor(C.T.copy()),
+                                       torch.as_tensor((C * C).sum(1)), nprobe)
+    assert got[0, :min(nprobe, 3)].tolist() == [3, 9, 20][:nprobe]
+
+
+def test_coarse_probes_reference_returns_every_list_at_nprobe_nlist():
+    Q, C = _probe_inputs(9, 70, 12, 7, 3)
+    args = (torch.as_tensor(Q), torch.as_tensor(C.T.copy()), torch.as_tensor((C * C).sum(1)))
+    for nprobe in (70, 71, 10_000):
+        got = tivf.coarse_probes_reference(*args, nprobe)
+        assert tuple(got.shape) == (9, 70)
+        assert torch.equal(torch.sort(got, dim=1).values, torch.arange(70).expand(9, 70))
+    # A list whose score is not finite is never returned: its slot is -1.
+    C[4, 0] = np.inf
+    got = tivf.coarse_probes_reference(torch.as_tensor(Q), torch.as_tensor(C.T.copy()),
+                                       torch.as_tensor((C * C).sum(1)), 70)
+    assert (got[:, -1] == -1).all() and not (got == 4).any()
+
+
+def test_ivf_probes_on_the_cpu_takes_the_plain_version_and_refuses_what_it_has_none_for(setup):
+    idx, Q, _, _ = setup
+    scan = tivf.DeviceScan(idx.ivf, "cpu")
+    assert tuple(scan.centroidsT.shape) == (idx.ivf.centroids.shape[1], idx.ivf.nlist)
+    launch_counts.zero()
+    got = scan.probes(Q, NPROBE)
+    assert torch.equal(got, tivf.coarse_probes_reference(Q, scan.centroidsT, scan.cnorms, NPROBE))
+    counts = launch_counts.read()
+    assert counts["ivf_probes"] == 0 and counts["ivf_probes_wide"] == 0
+    with pytest.raises(ValueError, match="nprobe=0"):
+        scan.probes(Q, 0)
+    with pytest.raises(ValueError, match="unsupported device"):
+        tivf.ivf_probes(Q.to("meta"), scan.centroidsT.to("meta"), scan.cnorms.to("meta"), 4)
+
+
+@pytest.mark.parametrize("nq,nlist,want", [
+    (1000, 16384, 8),  # the IVF cell: 16 query tiles x 8 chunks, one wave of 128 blocks
+    (1, 16384, 64),  # one query: a chunk a tile of 256 lists
+    (7, 1000, 3),  # the tiles cap it: every chunk a whole tile at least
+    (1000, 1024, 4),
+    (1, 65536, 132),  # a wave of blocks: one a chunk
+    (20_000, 16384, 1),  # more query tiles than SMs: one chunk
+    (5, 200, 1),  # fewer lists than a tile
+])
+def test_ivf_probe_plan_from_the_shapes_the_host_knows(nq, nlist, want):
+    assert tivf.ivf_probe_plan(nq, nlist, 132) == want

@@ -15,7 +15,8 @@ import sys
 import pytest
 import torch
 
-from local_search_quantization_torch import _build
+from local_search_quantization_torch import _build, ivf
+from local_search_quantization_torch.ops.select_kernels import lex_topk
 from local_search_quantization_torch.utils import kernel_cases as kc
 
 _CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
@@ -89,7 +90,8 @@ def test_every_launching_entry_point_has_a_case_for_each_value_it_accepts():
     # The parse finds the entry points that launch, and only those.
     assert {"lsq_ils_encode", "lsq_icm_sweeps_v2", "lsq_icm_sweeps_v1",
             "lsq_icm_sweeps_dissect", "lsq_scan_topk", "lsq_k2_filter", "lsq_k2_select",
-            "lsq_select_topk", "lsq_scan_key", "lsq_ivf_scan", "lsq_l2_gather"} == set(entries)
+            "lsq_select_topk", "lsq_scan_key", "lsq_ivf_scan", "lsq_ivf_probes",
+            "lsq_l2_gather"} == set(entries)
     assert entries["lsq_icm_sweeps_dissect"]["variant"] == {0, 1, 2, 3, 4}
     assert entries["lsq_scan_key"]["code_bytes"] == {1, 4}
     assert entries["lsq_ivf_scan"]["kcap"] == {32, 256, 2048}
@@ -169,7 +171,7 @@ def test_sanitizer_filter_names_every_kernel_in_csrc():
             with open(os.path.join(_CSRC, name)) as f:
                 kernels |= set(re.findall(r"__global__\s+void\s+(?:__launch_bounds__\(.*\)\s+)?"
                                           r"(\w+)\s*\(", f.read()))
-    assert len(kernels) == 14
+    assert len(kernels) == 16
     assert kernels == set(kc.SANITIZED_KERNELS)
 
 
@@ -191,3 +193,43 @@ def test_sanitizer_is_found_as_nvcc_is_and_its_command_runs_the_cases(tmp_path, 
     assert cmd[-5:] == [sys.executable, "-m", kc.__name__, "--device", "cuda"]
     assert [cmd[i + 1] for i, a in enumerate(cmd) if a == "--kernel-name"] == [
         f"kns={k}" for k in kc.SANITIZED_KERNELS]
+
+
+# Mutants of the coarse probes that the catalogue's comparison must flag:
+# the norm term dropped, exact ties to the higher id, the lists of one chunk
+# (`ivf.ivf_probe_plan`'s first, on a card of 132 SMs) left out. Each case is
+# one the kernel serves.
+def _probes_no_norm(a, nprobe):
+    Q, CT, cn = a
+    return ivf.coarse_probes_reference(Q, CT, torch.zeros_like(cn), nprobe)
+
+
+def _probes_ties_reversed(a, nprobe):
+    Q, CT, cn = a
+    nlist = cn.shape[0]
+    rev = (nlist - 1 - torch.arange(nlist)).expand(Q.shape[0], nlist)
+    ids = lex_topk(cn[None, :] - 2.0 * (Q @ CT), rev, nprobe)[1]
+    return torch.where(ids >= 0, nlist - 1 - ids, -1)
+
+
+def _probes_chunk_left_out(a, nprobe):
+    Q, CT, cn = a
+    nlist = cn.shape[0]
+    chunks = ivf.ivf_probe_plan(Q.shape[0], nlist, 132)
+    tiles = -(-nlist // ivf._PROBES_CTILE)
+    cn = cn.clone()
+    cn[:tiles // chunks * ivf._PROBES_CTILE] = float("inf")
+    return ivf.coarse_probes_reference(Q, CT, cn, nprobe)
+
+
+@pytest.mark.parametrize("mutant", [_probes_no_norm, _probes_ties_reversed,
+                                    _probes_chunk_left_out])
+@pytest.mark.parametrize("label", ["nq=1000 nlist=1024 d=128 nprobe=64, integer",
+                                   "nq=7 nlist=16384 d=128 nprobe=64, duplicated lists"])
+def test_coarse_probes_cases_flag_mutants(mutant, label):
+    case = next(c for c in kc.CASES if c.name == f"IVF probes {label}")
+    nprobe = int(label.split("nprobe=")[1].split(",")[0])
+    inputs = case.make(torch.device("cpu"))
+    want = case.plain(inputs)
+    assert case.compare(want.clone(), want, inputs) is None
+    assert case.compare(mutant(inputs, nprobe), want, inputs) is not None

@@ -983,10 +983,11 @@ def test_mesh_search_on_the_card_matches_single_device(cuda, shards, k):
 
 @pytest.mark.parametrize("case", kernel_cases.CASES, ids=[c.name for c in kernel_cases.CASES])
 def test_kernel_case_on_the_card(cuda, case):
-    """Every case of the catalogue: the kernel launches and gives its plain
+    """Every case of the catalogue: the kernel launches (none where the case
+    leaves the shape to the wrapper's torch form) and gives its plain
     version's outputs."""
     bad, launched = kernel_cases.run_case(case, cuda)
-    assert bad is None and launched > 0
+    assert bad is None and (launched > 0) == bool(case.entries)
 
 
 @pytest.mark.parametrize("fill", ["zero", "ones", "nan"])
@@ -1221,3 +1222,137 @@ def test_ivf_route_on_the_card_never_runs_the_plain_scan(cuda, sync_index, monke
 def test_ivf_scan_rules_mirror_the_library(cuda):
     lib = _build.load("ivf_scan")
     assert lib.lsq_ivf_lut_max_bytes() == tivf._IVF_LUT_MAX_BYTES
+
+
+# ---------------------------------------------------------------------------
+# The IVF coarse probes (csrc/ivf_probes.cu) against their plain version, and
+# on the route.
+
+
+def test_ivf_probes_serve_what_the_kernel_wins_and_size_their_workspace(cuda):
+    """The kernel serves nprobe <= 64 at d <= 128 (d padded to 32); its
+    workspace is [nq, chunks, P] keys and the chunks' bounds, P the least
+    power of two >= max(nprobe, 32)."""
+    lib = _build.load("ivf_probes")
+    assert [lib.lsq_ivf_probes_serves(d, p) for d, p in (
+        (128, 64), (100, 1), (1, 64), (128, 65), (129, 64), (960, 64), (128, 0), (0, 1))] == [
+        1, 1, 1, 0, 0, 0, 0, 0]
+    for nq, chunks, nprobe, P in ((1000, 8, 64, 64), (1, 64, 64, 64), (7, 3, 20, 32),
+                                  (33, 4, 33, 64), (2, 5, 1, 32)):
+        assert lib.lsq_ivf_probes_work_words(nq, chunks, nprobe) == (
+            nq * chunks * P + (nq * (chunks + 1) + 1) // 2)
+
+
+@pytest.mark.parametrize("nq,nlist,d,nprobe", [
+    (1000, 16_384, 128, 64),  # the IVF cell's shape
+    (1, 16_384, 128, 64),  # one query served: a chunk a tile
+    (130, 3000, 100, 33),  # query tiles ragged, d ragged, P = 64 above nprobe
+    (64, 777, 32, 32),  # one full query tile, nlist ragged, the tiles cap the chunks
+])
+def test_ivf_probes_match_plain_version_at_the_route_shapes(cuda, nq, nlist, d, nprobe):
+    case = kernel_cases._probes(f"{nq} {nlist} {d} {nprobe}", nq, nlist, d, nprobe, False, nq + d)
+    a = case.make(cuda)
+    launch_counts.zero()
+    got = case.kernel(a)
+    counts = launch_counts.read()
+    assert counts["ivf_probes"] == 1 and counts["ivf_probes_wide"] == 0
+    bad = case.compare(got, case.plain(a), a)
+    assert bad is None, bad
+
+
+@pytest.mark.parametrize("d,nprobe", [(16, 65), (128, 2048), (960, 64), (129, 1)])
+def test_ivf_probes_above_the_kernel_take_the_torch_form_and_count_it(cuda, d, nprobe):
+    a = kernel_cases._probes_make(3, 5000, d, True, 9)(cuda)
+    launch_counts.zero()
+    got = tivf.ivf_probes(*a, nprobe)
+    counts = launch_counts.read()
+    assert counts["ivf_probes"] == 0 and counts["ivf_probes_wide"] == 1
+    want = tivf.coarse_probes_topk(*a, nprobe)
+    assert torch.equal(got, want)
+
+
+def test_ivf_probes_make_no_host_sync(cuda):
+    a = kernel_cases._probes_make(100, 4096, 128, False, 10)(cuda)
+    tivf.ivf_probes(*a, 64)  # builds the library
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        tivf.ivf_probes(*a, 64)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
+@pytest.fixture(scope="module")
+def ivf_cell_index():
+    """The IVF cell's deployment cut to 200k rows and 1,024 lists on the card
+    (d=128, LSQ m=7 h=256 with the norm byte), and its first 200 queries."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from portbench import common, deploy
+
+    cfg = dict(common.config("bigann10m-ivf16k-lsq64"), n_train=20_000, n_base=200_000,
+               n_query=200, niter=2, ilsiter=4)
+    seeded = dict(cfg, name=cfg["corpus_of"])
+    data = deploy.make_corpus(seeded, "cuda")
+    idx = deploy.build_index(seeded, data, "cuda")
+    idx.build_ivf(1024, sample=1 << 16, iters=5)
+    return idx, data.query
+
+
+def test_ivf_route_probes_on_the_card_with_no_sync_and_one_launch_a_call(cuda, ivf_cell_index):
+    """`Index.search(nprobe=64)` under `set_sync_debug_mode("warn")`: no sync
+    flagged, and each call adds 1 to `ivf_probes` and 0 to
+    `ivf_probes_wide`."""
+    import warnings
+
+    idx, Q = ivf_cell_index
+    idx.search(Q, k=10, nprobe=64)  # builds the libraries, uploads the partition
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True):
+        torch.cuda.set_sync_debug_mode("warn")
+        torch.cuda.set_sync_debug_mode("default")
+    launch_counts.zero()
+    with warnings.catch_warnings(record=True) as got:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            for _ in range(3):
+                idx.search(Q, k=10, nprobe=64)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    flagged = [f"{w.filename}:{w.lineno}" for w in got if "synchroniz" in str(w.message)]
+    counts = launch_counts.read()
+    assert flagged == [] and counts["host_syncs"] == 0
+    assert counts["ivf_probes"] == 3 and counts["ivf_probes_wide"] == 0
+    assert counts["ivf_scan"] == 3 and counts["search_calls"] == 3
+
+
+def test_ivf_route_with_the_kernel_passes_the_cells_judge_as_the_torch_form_did(
+        cuda, ivf_cell_index):
+    """The route's answers with the kernel's probes and with the torch form
+    of the parent's route (`coarse_probes_topk`, then the same scan) both
+    pass the IVF cell's judge under its limits; where the two probe sets
+    agree, the answers are identical."""
+    from portbench import check, common, deploy
+    from portbench.drivers.ivf_batch import partition_state
+    from portbench.reference import adc as adc_ref
+    from portbench.reference import ivf as ivf_ref
+
+    idx, Q = ivf_cell_index
+    k, nprobe = 10, 64
+    new = idx.search(Q, k=k, nprobe=nprobe)
+    scan = idx._ivf_device_state()[0]
+    old_probes = tivf.coarse_probes_topk(Q, scan.centroidsT, scan.cnorms, nprobe)
+    old = scan.search(idx._query_luts(Q).contiguous(), k, old_probes)
+    state = deploy.index_state(idx)
+    searcher = adc_ref.Searcher(state["B"], state["C"], state["cbnorms"], cuda)
+    lists = ivf_ref.Lists(*partition_state(idx.ivf), cuda)
+    limits = common.workload("bigann10m-ivf16k-lsq64.batch-np64-k10")["limits"]
+    for res in (new, old):
+        numbers = ivf_ref.judge(searcher, lists, Q, res.ids.cpu(), res.dists.cpu(), k, nprobe)
+        assert check.verdict(dict(numbers, failed=0), limits)[0], numbers
+    same = (torch.sort(scan.probes(Q, nprobe), dim=1).values
+            == torch.sort(old_probes, dim=1).values).all(dim=1)
+    assert float(same.float().mean()) >= 0.95
+    assert torch.equal(new.ids[same], old.ids[same])
+    assert torch.equal(new.dists[same], old.dists[same])
