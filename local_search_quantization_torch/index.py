@@ -608,7 +608,8 @@ class Index:
                                 precision=precision)
 
     def _search(self, Q, k: int, *, mesh, nprobe, refine, precision) -> adc.KNNResult:
-        """`search` below its span: refine's first stage recurses here."""
+        """`search` below its span: refine's first stage recurses here, and its
+        re-rank runs in the span `index.search.refine.rerank`."""
         Q = self._queries(Q)
         if Q.ndim != 2 or Q.shape[1] != self.d:
             raise ValueError(f"queries must be [nq, {self.d}], got {tuple(Q.shape)}")
@@ -634,7 +635,8 @@ class Index:
             # A +inf first-stage slot never reaches the re-ranker with a real
             # id: the exact distance would resurrect a tombstoned row.
             cand_ids = torch.where(torch.isfinite(cand.dists), cand.ids, -1)
-            return rerank(self.refine, Q, cand_ids, k)
+            with span("index.search.refine.rerank"):
+                return rerank(self.refine, Q, cand_ids, k)
         if nprobe is not None and nprobe != 0:
             if self.ivf is None:
                 raise ValueError("nprobe given but no IVF partition; call "

@@ -32,6 +32,9 @@ CPU every launch count stays 0:
   summed over them. The kernel adds its rows on the card, to a
   `device_counter`, so that the call reads nothing back; `read` folds that
   counter in (one host read, at the read).
+- `refine_queries`, `refine_candidates`: the queries `refine.rerank`
+  re-ranked, and their candidate slots (nq x c, the -1 pads included),
+  added on the host from the shapes alone, with no sync, on any device.
 
 The server reports these at its end; a GPU run reads them around the work it
 drives. This module imports nothing of the package, so that every module can
@@ -53,7 +56,8 @@ COUNTS = dict.fromkeys(
     [key for key in LAUNCHES if key != "icm_sweeps_dissect"]
     + [f"dissect.{v}" for v in DISSECT_VARIANTS]
     + ["scan_topk_failed", "ivf_probes_wide", "host_syncs", "search_calls", "add_calls",
-       "rerun_warm", "rerun_widen", "rerun_tournament", "ivf_queries", "ivf_rows_scanned"], 0)
+       "rerun_warm", "rerun_widen", "rerun_tournament", "ivf_queries", "ivf_rows_scanned",
+       "refine_queries", "refine_candidates"], 0)
 # Counters a kernel adds to on the card: {(name of a COUNTS key, device): int64 [1]}.
 _ON_DEVICE: dict[tuple[str, torch.device], torch.Tensor] = {}
 

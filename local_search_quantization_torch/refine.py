@@ -20,6 +20,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from local_search_quantization_torch.ops import launch_counts
 from local_search_quantization_torch.ops.adc import KNNResult
 from local_search_quantization_torch.ops.select_kernels import lex_topk
 
@@ -104,11 +105,15 @@ def rerank(store: RefineStore, Q, cand_ids, k: int, *,
     skipped. Output follows the scanners' contract: ascending (dist, id),
     (+inf, -1) past the live candidates; ids int64 on the store's device.
     Distances are TRUE squared L2, comparable across methods but not to the
-    first-stage distances. Runs `query_chunk` queries at a time.
+    first-stage distances. Runs `query_chunk` queries at a time. Counts
+    the queries and their candidate slots (`refine_queries`,
+    `refine_candidates`) from the shapes, with no sync.
     """
     dev = store.data.device
     Q = torch.as_tensor(Q).to(dev, torch.float32)
     cand_ids = torch.as_tensor(cand_ids).to(dev, torch.int64)
+    launch_counts.COUNTS["refine_queries"] += int(cand_ids.shape[0])
+    launch_counts.COUNTS["refine_candidates"] += int(cand_ids.numel())
     out_d, out_i = [], []
     for s in range(0, Q.shape[0], query_chunk):
         cq = cand_ids[s:s + query_chunk]

@@ -1031,15 +1031,16 @@ def sync_index():
 
 
 @pytest.mark.parametrize("call", ["search_k10", "search_k1000", "search_upload", "add",
-                                  "search_ivf"])
+                                  "search_ivf", "search_refine"])
 def test_host_syncs_count_every_sync_the_card_flags(cuda, sync_index, call):
     """Under `torch.cuda.set_sync_debug_mode("warn")` one call raises the
     `host_syncs` counter by exactly the number of syncs the card flags: a
     search at k=10 and at k=1000 (K2's certificate), one that uploads the
     scan state again, an add of 2^17 rows (K1's inputs, the codes and
-    the norms), and a probed search (the IVF route, with the partition built
-    and uploaded in the call before). Each call runs once before, so nothing
-    is built in it."""
+    the norms), a probed search (the IVF route, with the partition built
+    and uploaded in the call before), and a probed search re-ranked from an
+    SQ8 store (the refine route, the store attached in the call before).
+    Each call runs once before, so nothing is built in it."""
     import warnings
 
     from local_search_quantization_torch.ops import launch_counts
@@ -1049,10 +1050,15 @@ def test_host_syncs_count_every_sync_the_card_flags(cuda, sync_index, call):
     def run():
         if call == "add":
             return idx.add(X)
-        if call == "search_ivf":
+        if call in ("search_ivf", "search_refine"):
             if idx.ivf is None:
                 idx.build_ivf(256)
-            return idx.search(Q, k=10, nprobe=8)
+            if call == "search_ivf":
+                return idx.search(Q, k=10, nprobe=8)
+            if idx.refine is None or idx.refine.n != idx.n:
+                idx.attach_refine(np.random.default_rng(5).normal(
+                    size=(idx.n, idx.d)).astype(np.float32))
+            return idx.search(Q, k=10, nprobe=8, refine=10)
         if call == "search_upload":
             idx._scan_ver += 1  # as a mutation does: the next search uploads
         return idx.search(Q, k=10 if call == "search_k10" else 1000)
@@ -1083,6 +1089,12 @@ def test_host_syncs_count_every_sync_the_card_flags(cuda, sync_index, call):
         assert counts["ivf_queries"] == Q.shape[0]
         assert counts["ivf_rows_scanned"] == int(idx.ivf.lives[probes].sum())
         assert counts["ivf_scan"] == 1 and counts["ivf_merge"] <= 1
+    elif call == "search_refine":
+        # The first stage and the re-rank read nothing back either.
+        assert flagged == [] and counts["host_syncs"] == 0
+        assert counts["refine_queries"] == Q.shape[0]
+        assert counts["refine_candidates"] == Q.shape[0] * 100
+        assert counts["ivf_queries"] == Q.shape[0] and counts["ivf_scan"] == 1
     else:
         assert len(flagged) >= 1
 

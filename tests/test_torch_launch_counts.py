@@ -20,12 +20,14 @@ _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _PKG = os.path.join(_ROOT, "local_search_quantization_torch")
 
 # `read()`'s keys: those it returned before the counters moved into one
-# table, "l2_gather", and the coarse probes' "ivf_probes" and "ivf_probes_wide".
+# table, "l2_gather", the coarse probes' "ivf_probes" and "ivf_probes_wide", and
+# the re-rank's "refine_queries" and "refine_candidates".
 READ_KEYS = {"ils_encode", "icm_sweeps_v2", "icm_sweeps_v1", "dissect", "icm_sweeps_dissect",
              "scan_select", "scan_key", "k2_filter", "k2_select", "scan_topk_dense",
              "scan_topk_failed", "scan_topk", "ivf_scan", "ivf_merge", "host_syncs",
              "search_calls", "add_calls", "rerun_warm", "rerun_widen", "rerun_tournament",
-             "ivf_queries", "ivf_rows_scanned", "l2_gather", "ivf_probes", "ivf_probes_wide"}
+             "ivf_queries", "ivf_rows_scanned", "l2_gather", "ivf_probes", "ivf_probes_wide",
+             "refine_queries", "refine_candidates"}
 
 
 def _sources():
